@@ -43,21 +43,50 @@ Phases, each printed as one JSON line:
            and read just after.  Checks: no violations, a falling loss,
            ps_apply launched (and topk_mag for MF: logreg's one key needs no
            send order).
-  kernels  each CUDA kernel against its plain PyTorch version on CPU copies
-           of the same inputs, bitwise (for vap_accum, NaN meets NaN; its
-           payload is free), at the shapes the paths gave it (ps_apply's
-           median call per table, no sentinel rows, as the shard sends
-           none; MF's too) and at stress shapes; its time (CUDA events, median of 20
-           runs after warm-up), the plain version's on the host, one
-           PyTorch library call's on the card (for vap_accum three eager
-           ops, since no one call computes it), and the least time the
-           card could take (bytes over 3.35 TB/s, or operations over the
-           peak rate, whichever is larger).
+  serve    LLM serving, as examples/serve_demo.py drives the JAX package:
+           make_prefill_step then make_serve_step (greedy decode against
+           ring KV caches), for RecurrentGemma-9B and Mamba2-130M at their
+           full published widths in bfloat16, random weights drawn on the
+           card from --seed (default 0); 4 requests of 4,096 prompt tokens
+           (drawn from the seed), 32 generated tokens each.  Per model: prefill ms,
+           decode ms a step, tokens a second, peak device memory, and from
+           a profiled repeat the device's busy time, idle share and time by
+           kernel name.  Launch counters set to 0 just before the prefill
+           and read just after it and after the decode.  Checks: one launch
+           a layer per prefill (RecurrentGemma: rglru_scan 26, flash_attention
+           12; Mamba2: ssd_scan 24) and none in decode; finite logits; every
+           token in the vocabulary; the first decode step's logits against
+           a full forward over prompt + that token, within 5e-2 of the
+           logits' largest magnitude (bfloat16: the two paths round at
+           other places through 38 and 24 layers).
+  kernels  each CUDA kernel against its plain PyTorch version, at the
+           shapes the paths gave it (ps_apply's median call per table, no
+           sentinel rows, as the shard sends none; MF's too; the serve
+           path's first call for the LLM kernels) and at stress shapes
+           (tests/test_kernels.py's cases for the LLM kernels).  The
+           parameter-server kernels and rglru_scan are held bitwise (for
+           vap_accum, NaN meets NaN; its payload is free); flash_attention to
+           the bfloat16 output's rounding at the serve path's call (atol
+           4e-3, rtol 1e-2; the mean |output| is printed beside the error)
+           and to tests/test_kernels.py's tolerance at the stress shapes,
+           and ssd_scan, which computes in
+           float32 as the TPU kernel does, against the plain version in
+           float32 on the same values to the output's rounding (the distance
+           to the plain version in bfloat16 is printed).  Per case: its time
+           (CUDA events, median of 20 runs after warm-up), the plain
+           version's (on the host for the parameter-server kernels, on the
+           card for the LLM kernels), one PyTorch library call's on the card
+           where one computes the same function (for vap_accum three eager
+           ops; for flash_attention scaled_dot_product_attention with the
+           window as a boolean mask; none for the two scans), and the least
+           time the card could take (bytes over 3.35 TB/s, or operations
+           over the peak rate for the inputs' type, whichever is larger).
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure raises: the exit code
 is non-zero and the last line is not printed.  There is no CPU path.
 """
+import argparse
 import contextlib
 import json
 import os
@@ -69,12 +98,15 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-PEAK_OPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12}   # no tensor
-# cores: FP64 and FP32 vector rates of the H100 SXM data sheet
+# H100 SXM data sheet: FP64 and FP32 vector rates (no tensor cores), and the
+# dense bf16 tensor-core rate (989 TFLOPS, without sparsity)
+PEAK_OPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12,
+                  torch.bfloat16: 989e12}
 REPS = 20
 
 
@@ -271,6 +303,192 @@ def check_vap_accum(dev, shape, delta_dtype, seed, special=False, offset=0):
             "bound_by": bound_by}
 
 
+# tests/test_kernels.py's tolerances for flash attention (stress cases)
+FLASH_TOL = {torch.float32: dict(atol=5e-5, rtol=1e-4),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# at the serve path's call a row of 2,048 keys averages them to outputs of
+# a few hundredths, where 2e-2 would let a dropped key tile pass: the gate
+# is the bfloat16 output's rounding (2^-9 relative, so 1e-2 covers a unit
+# in the last place) plus float32 summation order
+FLASH_PATH_TOL = {torch.float32: dict(atol=5e-5, rtol=1e-4),
+                  torch.bfloat16: dict(atol=4e-3, rtol=1e-2)}
+# ssd_scan against the plain version in float32 on the same values: float32
+# summation order, plus the rounding of a bfloat16 output (2^-9 relative)
+SSD_TOL = {torch.float32: dict(atol=5e-5, rtol=1e-4),
+           torch.bfloat16: dict(atol=1e-3, rtol=4e-3)}
+# tests/test_kernels.py's SSD tolerance between an all-float32 kernel and
+# the bfloat16 plain version (reported, not a gate)
+SSD_SAME_DTYPE_TOL = {torch.float32: dict(atol=5e-5, rtol=1e-4),
+                      torch.bfloat16: dict(atol=1e-1, rtol=5e-2)}
+
+
+def _dname(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def check_flash(dev, q, k, v, q_pos, k_pos, window=None, cap=None,
+                tol=FLASH_TOL):
+    """Inputs on the card; the plain version (dense float32 attention) runs
+    on the card too.  ``tol``: {dtype: allclose's atol and rtol}."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    kw = dict(window=window, cap=cap)
+    got = ops.flash_attention(q, k, v, q_pos, k_pos, **kw)
+    want = ref.attention(q, k, v, q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    mean_abs_want = float(want.float().abs().mean())
+    if not torch.allclose(got.float(), want.float(), **tol[q.dtype]):
+        raise AssertionError(f"flash_attention {tuple(q.shape)} {q.dtype}: "
+                             f"kernel != plain (max abs err {err}, mean "
+                             f"|plain| {mean_abs_want}, {tol[q.dtype]})")
+    del want
+    b, sq, kvh, G, dh = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    big = q.numel() > 10_000_000
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, q_pos, k_pos, **kw))
+    plain_ms = cuda_ms(lambda: ref.attention(q, k, v, q_pos, k_pos, **kw),
+                       reps=5 if big else REPS, warmup=1 if big else 3)
+    mask = k_pos[None, :].long() <= q_pos[:, None].long()
+    if window is not None:
+        mask &= k_pos[None, :].long() > q_pos[:, None].long() - window
+    library_ms = None
+    if cap is None:             # scaled_dot_product_attention has no softcap
+        qs = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * G, sq, dh)
+        ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+    pairs = int(mask.sum()) * b * kvh * G        # (query, key) pairs kept
+    esize = q.element_size()
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * esize \
+        + 4 * (sq + skv)
+    bound_ms, bound_by = bound(nbytes, 2 * pairs * (dh + dv), q.dtype)
+    return {"shape": f"q {'x'.join(map(str, q.shape))} kv {skv}x{dv} "
+                     f"{_dname(q.dtype)} window {window} cap {cap}",
+            "max_abs_err": err, "mean_abs_plain": mean_abs_want,
+            "tolerance": tol[q.dtype],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(attn_mask=window mask, "
+                       "enable_gqa=True)" if cap is None else None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
+
+
+def check_ssd(dev, x, dt, A, B, C, chunk, initial_state=None):
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    y, st = ops.ssd_scan(x, dt, A, B, C, chunk, initial_state=initial_state)
+    y32, st32 = ref.ssd_chunked(x.float(), dt, A, B.float(), C.float(), chunk,
+                                initial_state=initial_state)
+    y_same, _ = ref.ssd_chunked(x, dt, A, B, C, chunk,
+                                initial_state=initial_state)
+    torch.cuda.synchronize()
+    err = float((y.float() - y32).abs().max())
+    err_state = float((st - st32).abs().max())
+    err_same = float((y.float() - y_same.float()).abs().max())
+    within_same = bool(torch.allclose(y.float(), y_same.float(),
+                                      **SSD_SAME_DTYPE_TOL[x.dtype]))
+    if not (torch.allclose(y.float(), y32, **SSD_TOL[x.dtype])
+            and torch.allclose(st, st32, atol=1e-4, rtol=1e-4)):
+        raise AssertionError(f"ssd_scan {tuple(x.shape)} {x.dtype}: kernel "
+                             f"!= plain in float32 (max abs err y {err}, "
+                             f"state {err_state})")
+    del y32, st32, y_same
+    ms = cuda_ms(lambda: ops.ssd_scan(x, dt, A, B, C, chunk,
+                                      initial_state=initial_state))
+    plain_ms = cuda_ms(lambda: ref.ssd_chunked(
+        x, dt, A, B, C, chunk, initial_state=initial_state), reps=5, warmup=1)
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    cs = min(chunk, l)
+    fma = 0
+    for c0 in range(0, l, cs):          # the last chunk is padded to cs
+        fma += cs * (cs + 1) // 2 * (n + p) + 2 * cs * p * n
+    esize = x.element_size()
+    nbytes = (2 * x.numel() + B.numel() + C.numel()) * esize \
+        + 4 * (dt.numel() + A.numel() + st.numel()) \
+        + (4 * initial_state.numel() if initial_state is not None else 0)
+    bound_ms, bound_by = bound(nbytes, 2 * fma * b * h, x.dtype)
+    return {"shape": f"x {'x'.join(map(str, x.shape))} B/C "
+                     f"{'x'.join(map(str, B.shape))} {_dname(x.dtype)} chunk "
+                     f"{chunk}" + (" initial state" if initial_state
+                                   is not None else ""),
+            "max_abs_err": err, "max_abs_err_state": err_state,
+            "tolerance": SSD_TOL[x.dtype],
+            "max_abs_err_vs_same_dtype_plain": err_same,
+            "within_test_kernels_tolerance_of_same_dtype_plain": within_same,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_rglru(dev, a, b, initial=None):
+    from repro_torch.kernels.rglru_scan import ops, ref
+
+    h, h_last = ops.linear_recurrence(a, b, initial)
+    want_h, want_last = ref.linear_recurrence(a, b, initial)
+    torch.cuda.synchronize()
+    err = float((h - want_h).abs().max())
+    if not (torch.equal(h, want_h) and torch.equal(h_last, want_last)):
+        raise AssertionError(f"rglru_scan {tuple(a.shape)}: kernel != plain "
+                             f"(max abs err {err})")
+    del want_h, want_last
+    big = a.numel() > 10_000_000
+    ms = cuda_ms(lambda: ops.linear_recurrence(a, b, initial))
+    plain_ms = cuda_ms(lambda: ref.linear_recurrence(a, b, initial),
+                       reps=3 if big else REPS, warmup=1)
+    nbytes = 4 * (3 * a.numel() + h_last.numel()
+                  + (initial.numel() if initial is not None else 0))
+    bound_ms, bound_by = bound(nbytes, 2 * a.numel(), torch.float32)
+    return {"shape": f"a/b {'x'.join(map(str, a.shape))} float32"
+                     + (" initial state" if initial is not None else ""),
+            "max_abs_err": err, "tolerance": "bitwise (0)", "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def llm_stress_cases(dev):
+    """tests/test_kernels.py's cases for the three LLM kernels, on the
+    card, inputs drawn from a seed."""
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, dtype=torch.float32, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    out = {"flash_attention": [], "ssd_scan": [], "rglru_scan": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, skv, kvh, G, dh, dv, window, cap in (
+                (2, 256, 256, 2, 2, 64, 64, None, None),
+                (2, 256, 256, 2, 2, 64, 64, 100, None),
+                (1, 300, 300, 1, 4, 32, 32, None, 50.0),
+                (1, 128, 128, 4, 1, 192, 128, None, None),
+                (1, 512, 512, 1, 1, 128, 128, 64, 30.0),
+                (2, 64, 512, 2, 2, 64, 64, None, None)):
+            out["flash_attention"].append(check_flash(
+                dev, randn(b, sq, kvh, G, dh, dtype=dtype),
+                randn(b, skv, kvh, dh, dtype=dtype),
+                randn(b, skv, kvh, dv, dtype=dtype),
+                torch.arange(skv - sq, skv, dtype=torch.int32, device=dev),
+                torch.arange(skv, dtype=torch.int32, device=dev),
+                window=window, cap=cap))
+        for b, l, h, p, gr, n, chunk in ((2, 64, 4, 8, 2, 16, 16),
+                                         (1, 100, 6, 16, 1, 32, 32),
+                                         (2, 256, 4, 64, 2, 128, 64),
+                                         (1, 32, 2, 8, 2, 8, 32)):
+            out["ssd_scan"].append(check_ssd(
+                dev, randn(b, l, h, p, dtype=dtype), uniform(0.01, 0.2, b, l, h),
+                -uniform(0.1, 1.0, h), randn(b, l, gr, n, dtype=dtype),
+                randn(b, l, gr, n, dtype=dtype), chunk,
+                initial_state=randn(b, h, p, n, std=0.5)))
+    for b, l, w in ((2, 64, 128), (1, 100, 50), (3, 256, 256), (1, 128, 4096),
+                    (4, 333, 4096)):
+        out["rglru_scan"].append(check_rglru(
+            dev, uniform(0.7, 0.999, b, l, w), randn(b, l, w, std=0.1),
+            randn(b, w)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
@@ -281,6 +499,16 @@ N_TOPICS, N_WORKERS, N_SHARDS, N_CLOCKS = 1_000, 4, 2, 3
 REDUCED = {"n_docs": f"{N_DOCS} of ~11,000 (20News)"}
 
 
+def _short(name: str) -> str:
+    """A kernel's name without its namespaces, cut to 200 characters: long
+    enough that the elementwise kernels keep the functor that tells them
+    apart (a copy's dtypes, the op)."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::",
+                  "at::", "c10::"):
+        name = name.replace(noise, "")
+    return name[:200]
+
+
 def device_seconds(prof) -> dict:
     """Device time by kernel / copy name, from the profiler's device
     events."""
@@ -289,12 +517,13 @@ def device_seconds(prof) -> dict:
         # a call site's range also shows on the device's timeline: its
         # kernels are counted under their own names
         if e.device_type == DeviceType.CUDA and not e.name.startswith(SITE):
-            name = e.name[:60]
+            name = _short(e.name)
             out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e6
     return out
 
 
-KERNELS = ("ps_apply", "topk_mag", "vap_accum")
+KERNELS = ("ps_apply", "topk_mag", "vap_accum", "flash_attention",
+           "ssd_scan", "rglru_scan")
 SITE = "site:"
 
 
@@ -373,31 +602,49 @@ def path_run(dev):
     """Drive one path inside the block: every kernel's launch counter set to
     0 just before and read just after (into ``run["launches"]``), the shape
     of every call noted (``run["calls"]``; vap_accum's with the max it
-    returned), peak device memory reset."""
+    returned; an LLM kernel's first call's inputs kept in ``run["first"]``),
+    peak device memory reset."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ps_apply import ops as apply_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.topk_mag import ops as topk_ops
     from repro_torch.kernels.vap_accum import ops as vap_ops
 
-    mods = dict(zip(KERNELS, (apply_ops, topk_ops, vap_ops)))
-    orig = (apply_ops.scatter_add_, topk_ops.magnitude_order,
-            vap_ops.vap_accum_)
-    run = {"calls": {k: [] for k in KERNELS}}
+    mods = dict(zip(KERNELS, (apply_ops, topk_ops, vap_ops, fa_ops, ssd_ops,
+                              rg_ops)))
+    attrs = {"ps_apply": "scatter_add_", "topk_mag": "magnitude_order",
+             "vap_accum": "vap_accum_", "flash_attention": "flash_attention",
+             "ssd_scan": "ssd_scan", "rglru_scan": "linear_recurrence"}
+    orig = {k: getattr(mods[k], attrs[k]) for k in KERNELS}
+    # the LLM kernels' first call keeps its inputs (references, no copy)
+    run = {"calls": {k: [] for k in KERNELS}, "first": {}, "mods": mods}
 
     def scatter_add_(dense, rows, delta, **kw):
         run["calls"]["ps_apply"].append((*dense.shape, rows.shape[0]))
-        return orig[0](dense, rows, delta, **kw)
+        return orig["ps_apply"](dense, rows, delta, **kw)
 
     def magnitude_order(mags, k=None):
         run["calls"]["topk_mag"].append(mags.shape[0])
-        return orig[1](mags, k)
+        return orig["topk_mag"](mags, k)
 
     def vap_accum_(params, delta, update):
-        m = orig[2](params, delta, update)
+        m = orig["vap_accum"](params, delta, update)
         run["calls"]["vap_accum"].append((tuple(params.shape), m))
         return m
 
-    (apply_ops.scatter_add_, topk_ops.magnitude_order,
-     vap_ops.vap_accum_) = scatter_add_, magnitude_order, vap_accum_
+    def noting(name):
+        def call(*args, **kw):
+            run["calls"][name].append(tuple(tuple(a.shape) for a in args
+                                            if isinstance(a, torch.Tensor)))
+            run["first"].setdefault(name, (args, kw))
+            return orig[name](*args, **kw)
+        return call
+
+    wrappers = {"ps_apply": scatter_add_, "topk_mag": magnitude_order,
+                "vap_accum": vap_accum_}
+    for k in KERNELS:
+        setattr(mods[k], attrs[k], wrappers.get(k) or noting(k))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for m in mods.values():
@@ -406,8 +653,8 @@ def path_run(dev):
         yield run
         torch.cuda.synchronize()
     finally:
-        (apply_ops.scatter_add_, topk_ops.magnitude_order,
-         vap_ops.vap_accum_) = orig
+        for k in KERNELS:
+            setattr(mods[k], attrs[k], orig[k])
         run["launches"] = {k: m.launches for k, m in mods.items()}
 
 
@@ -690,6 +937,166 @@ def run_apps_phase(dev):
     return launches, calls
 
 
+# Serving (examples/serve_demo.py's loop) at the full published widths.
+# The assigned prefill shape is prefill_32k (32 x 32,768, configs/shapes.py);
+# the smoke cuts it to 4 requests of 4,096 tokens so that both models and
+# the kernels' checks fit the script's time limit.
+SERVE_MODELS = ("recurrentgemma-9b", "mamba2-130m")
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4_096, 32
+SERVE_REDUCED = {"shape": "4 requests x 4,096 prompt tokens of the assigned "
+                          "prefill_32k (32 x 32,768)",
+                 "weights": "random, drawn on the card from the seed"}
+# one launch per layer of the kernel's kind, per prefill
+SERVE_LAUNCHES = {"recurrentgemma-9b": {"rglru_scan": 26,
+                                        "flash_attention": 12},
+                  "mamba2-130m": {"ssd_scan": 24}}
+# bfloat16 decode against the full forward: the two paths round at other
+# places (cuBLAS picks other kernels for 1 and 4,097 rows; decode reads the
+# bfloat16 KV cache), and a few bfloat16 ulps carry through 38 / 24 layers
+PARITY_TOL = 5e-2
+
+
+def run_serve_phase(dev, seed):
+    """Prefill then greedy decode for each model, weights and prompts drawn
+    from ``seed``; returns ({model: launches}, {kernel: the first call's
+    inputs}, lines)."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models.common import ShardCtx, tree_leaves
+
+    lines, launches, first = {}, {}, {}
+    for name in SERVE_MODELS:
+        cfg = get_config(name)                      # dtype bfloat16
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        params = M.init_params(cfg, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        param_bytes = sum(x.numel() * x.element_size()
+                          for x in tree_leaves(params))
+        shape = InputShape("serve", seq_len=SERVE_PROMPT + SERVE_GEN,
+                           global_batch=SERVE_BATCH, mode="prefill")
+        prefill_fn = steps.make_prefill_step(cfg, None, shape)
+        serve_fn = steps.make_serve_step(cfg, None, shape)
+        rng = np.random.default_rng(seed)
+        prompts = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
+
+        def decode(nxt, caches, n_steps):
+            toks = [nxt]
+            for j in range(n_steps):
+                pos = torch.full((SERVE_BATCH,), SERVE_PROMPT + j,
+                                 dtype=torch.int32, device=dev)
+                nxt, caches = serve_fn(params, caches,
+                                       {"ids": nxt[:, None], "pos": pos})
+                toks.append(nxt)
+            return torch.stack(toks, 1), caches
+
+        # warm-up: cuBLAS handles and every torch kernel once, short prompt
+        nxt, caches = prefill_fn(params, {"ids": prompts[:, :256]})
+        decode(nxt, caches, 1)
+        del nxt, caches
+
+        with path_run(dev) as run:
+            t = time.perf_counter()
+            nxt, caches = prefill_fn(params, {"ids": prompts})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+            after_prefill = {k: m.launches for k, m in run["mods"].items()}
+            t = time.perf_counter()
+            tokens, caches = decode(nxt, caches, SERVE_GEN - 1)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev)
+        total = run["launches"]
+        in_decode = {k: total[k] - after_prefill[k] for k in KERNELS}
+        for k, v in run["first"].items():
+            first.setdefault(k, v)
+        del caches, run
+        tokens = tokens.cpu()
+
+        # a profiled repeat: prefill and 4 decode steps
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            nxt2, caches = prefill_fn(params, {"ids": prompts})
+            decode(nxt2, caches, 4)
+            torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t
+        del caches
+        device_s = device_seconds(prof)
+        busy_s = sum(device_s.values())
+
+        # the first decode step against a full forward over prompt + token
+        ctx = ShardCtx()
+        with torch.inference_mode():
+            logits_p, caches = M.prefill(cfg, ctx, params, prompts,
+                                         capacity=shape.seq_len)
+            tok0 = M.sample_greedy(ctx, logits_p)
+            logits_d, _ = M.decode_step(
+                cfg, ctx, params, tok0[:, None].long(),
+                torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int32,
+                           device=dev), caches)
+            del caches
+            x, _ = M.forward(cfg, ctx, params,
+                             torch.cat([prompts, tok0[:, None].long()], 1))
+            logits_f = M.logits_of(cfg, params, x[:, SERVE_PROMPT])
+            del x
+        scale = float(logits_f.abs().max())
+        parity = float((logits_d - logits_f).abs().max()) / scale
+        finite = bool(torch.isfinite(logits_p).all()
+                      and torch.isfinite(logits_d).all()
+                      and torch.isfinite(logits_f).all())
+        in_vocab = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+        same_first = bool(torch.equal(tok0.cpu(), tokens[:, 0]))
+        n_decode = SERVE_GEN - 1
+        lines[name] = {
+            "params": n_params, "param_bytes": param_bytes,
+            "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+            "generated": SERVE_GEN, "capacity": shape.seq_len,
+            "reduced": SERVE_REDUCED, "init_s": init_s,
+            "prefill_ms": prefill_s * 1e3,
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+            "decode_ms_per_step": decode_s * 1e3 / n_decode,
+            "decode_tokens_per_s": SERVE_BATCH * n_decode / decode_s,
+            "peak_device_bytes": peak,
+            "launches_prefill": {k: after_prefill[k] for k in KERNELS
+                                 if after_prefill[k]},
+            "launches_decode": {k: v for k, v in in_decode.items() if v},
+            "profiled": {"what": "prefill + 4 decode steps",
+                         "wall_s": prof_wall_s, "device_busy_s": busy_s,
+                         "device_idle_share": 1.0 - busy_s / prof_wall_s,
+                         "device_s_by_name": dict(sorted(
+                             device_s.items(), key=lambda kv: -kv[1])[:20])},
+            "parity_max_rel_err": parity, "parity_tolerance": PARITY_TOL,
+            "logits_max_abs": scale, "finite": finite,
+            "tokens_in_vocab": in_vocab,
+            "first_token_repeats": same_first,
+            "tokens_head": tokens[:2, :8].tolist()}
+        del params, prompts, logits_p, logits_d, logits_f
+        emit({"phase": "serve", "model": name, **lines[name]})
+        want = SERVE_LAUNCHES[name]
+        got = {k: after_prefill[k] for k in KERNELS if after_prefill[k]}
+        if got != want:
+            raise AssertionError(f"{name}: prefill launched {got}, not {want}")
+        if any(in_decode.values()):
+            raise AssertionError(f"{name}: decode launched {in_decode}")
+        if not (finite and in_vocab):
+            raise AssertionError(f"{name}: finite {finite}, tokens in the "
+                                 f"vocabulary {in_vocab}")
+        if not parity <= PARITY_TOL:
+            raise AssertionError(f"{name}: decode vs full forward {parity} "
+                                 f"of max|logit| > {PARITY_TOL}")
+        launches[name] = total
+    torch.cuda.empty_cache()
+    return launches, first, lines
+
+
 def path_shapes(calls):
     """The median call of each kernel on the main path: ps_apply's per
     (R, C) block, heaviest block first, and topk_mag's per length."""
@@ -703,6 +1110,10 @@ def path_shapes(calls):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the serve phase's weights and prompts")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's smoke test runs "
                  "only on the card")
@@ -734,6 +1145,10 @@ def main() -> None:
     spmd_launches, vap_shapes = run_lda_spmd_phase(dev, corpus)
     launches.update(spmd_launches)
     app_launches, app_calls = run_apps_phase(dev)
+    serve_launches, first, _ = run_serve_phase(dev, args.seed)
+    for name in ("flash_attention", "rglru_scan"):
+        launches[name] = serve_launches["recurrentgemma-9b"][name]
+    launches["ssd_scan"] = serve_launches["mamba2-130m"]["ssd_scan"]
 
     # first the paths' shapes (the table's rows), then stress shapes: a
     # batch 40,000 rows deep with sentinels in f64 and f32, 4,096 keys, and
@@ -763,7 +1178,22 @@ def main() -> None:
            check_vap_accum(dev, vap_shapes[-1], torch.bfloat16, 54,
                            special=True)],
     }
-    emit({"phase": "kernels", "tolerance": "bitwise (0)",
+    # the LLM kernels: first at the serve path's first call, then stress
+    (q, k, v, q_pos, k_pos), kw = first["flash_attention"]
+    path_llm = {"flash_attention": check_flash(dev, q, k, v, q_pos, k_pos,
+                                               tol=FLASH_PATH_TOL, **kw)}
+    (x, dt, A, B, C), kw = first["ssd_scan"]
+    path_llm["ssd_scan"] = check_ssd(dev, x, dt, A, B, C, **kw)
+    (a, b, *init), kw = first["rglru_scan"]
+    path_llm["rglru_scan"] = check_rglru(dev, a, b, *init, **kw)
+    del first, q, k, v, x, B, C, a, b
+    torch.cuda.empty_cache()
+    stress = llm_stress_cases(dev)
+    for name, case in path_llm.items():
+        cases[name] = [case] + stress[name]
+    emit({"phase": "kernels",
+          "tolerance": "bitwise (0) for ps_apply, topk_mag, vap_accum, "
+                       "rglru_scan; flash_attention and ssd_scan per case",
           "path_calls": {**{k: len(v) for k, v in calls.items()},
                          "vap_accum": launches["vap_accum"]},
           "app_calls": {k: len(v) for k, v in app_calls.items()},
@@ -775,7 +1205,14 @@ def main() -> None:
               "topk_mag": ("src/repro_torch/kernels/topk_mag/kernel.cu",
                            "src/repro/kernels/topk_mag/kernel.py:41"),
               "vap_accum": ("src/repro_torch/kernels/vap_accum/kernel.cu",
-                            "src/repro/kernels/vap_accum/kernel.py:34")}
+                            "src/repro/kernels/vap_accum/kernel.py:34"),
+              "flash_attention": (
+                  "src/repro_torch/kernels/flash_attention/kernel.cu",
+                  "src/repro/kernels/flash_attention/kernel.py:86"),
+              "ssd_scan": ("src/repro_torch/kernels/ssd_scan/kernel.cu",
+                           "src/repro/kernels/ssd_scan/kernel.py:79"),
+              "rglru_scan": ("src/repro_torch/kernels/rglru_scan/kernel.cu",
+                             "src/repro/kernels/rglru_scan/kernel.py:51")}
     table = []
     for name, (src, replaces) in source.items():
         main_case = cases[name][0]          # the main path's shape

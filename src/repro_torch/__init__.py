@@ -3,9 +3,11 @@
 The counterpart of the JAX package ``repro``, module for module: the
 consistency spec, simulator and SPMD sync layer (``core``), the threaded
 parameter-server runtime with its master state on the card (``runtime``),
-the LDA, MF and logistic-regression workloads (``data``, ``apps``), and
-hand-written Hopper kernels for the shard apply, the send order and the
-sync layer's accumulate (``kernels``).  It imports ``torch`` and ``numpy`` and
+the LDA, MF and logistic-regression workloads (``data``, ``apps``), LLM
+serving at tp = 1 for the recurrent-mixer architectures (``configs``,
+``models``, ``launch``), and hand-written Hopper kernels for the shard
+apply, the send order, the sync layer's accumulate and the prefill's
+attention and scans (``kernels``).  It imports ``torch`` and ``numpy`` and
 nothing of JAX or of ``repro``.
 
 Entry points run on the CUDA device unless the caller asks for the CPU

@@ -14,6 +14,12 @@ dict of numpy arrays, each keeping its dtype and shape.  bfloat16 crosses as
 its bits: numpy has no bfloat16 of its own, so an array whose dtype is named
 ``bfloat16`` (the reference's) is read through a 16-bit integer view, and a
 bfloat16 tensor comes back as float32, which holds it exactly.
+
+So does a model's parameter tree: :func:`model_params_from_reference` takes
+the JAX package's ``instantiate_tree(model_defs(cfg, 1), key)`` as numpy
+(nested dicts and lists, ``scan`` leaves stacked over the units) and gives
+the port's tree of the same layout and dtypes, which
+:func:`repro_torch.models.model.load_params` then casts for compute.
 """
 from __future__ import annotations
 
@@ -101,3 +107,12 @@ def sync_state_to_numpy(state) -> Dict[str, Any]:
     out.update({f: _to_array(getattr(state, f))
                 for f in _SYNC_SCALARS})
     return out
+
+
+def model_params_from_reference(tree: Any, device) -> Any:
+    """The JAX package's model parameter tree (numpy leaves, nested dicts
+    and lists) as the port's tree of tensors on ``device``, each leaf of the
+    same dtype and shape (bfloat16 through its bits).  Always copies."""
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda a: _to_tensor(a, device), tree)

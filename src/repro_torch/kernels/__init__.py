@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels for the parameter server's and the sync
-layer's hot paths: ``ps_apply``, ``topk_mag`` and ``vap_accum``.
+layer's hot paths (``ps_apply``, ``topk_mag``, ``vap_accum``) and for the
+LLM substrate's prefill (``flash_attention``, ``ssd_scan``, ``rglru_scan``).
 
 Each kernel lives in its own subpackage with three files:
   kernel.cu — the CUDA C++ source, compiled for sm_90a by :mod:`._build`

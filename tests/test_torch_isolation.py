@@ -35,7 +35,13 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
     for m in ("repro_torch.core.sync", "repro_torch.kernels.vap_accum.ops",
               "repro_torch.core.theory", "repro_torch.core.tables",
               "repro_torch.core.client", "repro_torch.apps.mf",
-              "repro_torch.apps.logreg"):
+              "repro_torch.apps.logreg", "repro_torch.configs.registry",
+              "repro_torch.models.common", "repro_torch.models.attention",
+              "repro_torch.models.recurrent", "repro_torch.models.moe",
+              "repro_torch.models.model", "repro_torch.launch.steps",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.ssd_scan.ops",
+              "repro_torch.kernels.rglru_scan.ops"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -8,25 +8,46 @@ Pallas path no longer runs under the installed jax), the Pallas
 ``topk_mag`` kernel plus its f64 refine (``REPRO_PALLAS=interpret``) for the
 send order, and for the VAP accumulate the Pallas ``vap_accum`` kernel in
 interpret mode, its jnp ``ref`` and the sync layer's own expression
-(``(d + u).astype(d.dtype)``, then ``tree_max_abs``) for a bfloat16 delta.  The ``cuda``-marked cases build the CUDA kernels and hold them
-bitwise against the plain versions on CPU copies of the same inputs; they
-skip on a host without a CUDA device.
+(``(d + u).astype(d.dtype)``, then ``tree_max_abs``) for a bfloat16 delta.
+The LLM substrate's three: flash attention and the SSD scan against the
+Pallas kernels in interpret mode and the jnp oracles, over
+``tests/test_kernels.py``'s cases and tolerances; the RG-LRU recurrence
+against the jnp oracle only (the Pallas kernel no longer runs under the
+installed jax: ``pl.load`` is gone).
+
+The ``cuda``-marked cases build the CUDA kernels and hold them against the
+plain versions (bitwise for the parameter-server kernels and the RG-LRU
+recurrence, on CPU copies; with ``tests/test_kernels.py``'s tolerances for
+flash attention and the SSD scan, on the card); they skip on a host without
+a CUDA device.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import sync as ref_sync
+from repro.kernels.flash_attention import kernel as ref_fa_kernel
+from repro.kernels.flash_attention import ref as ref_fa
+from repro.kernels.rglru_scan import ref as ref_rg
+from repro.kernels.ssd_scan import kernel as ref_ssd_kernel
+from repro.kernels.ssd_scan import ref as ref_ssd
 from repro.kernels.ps_apply import ops as ref_apply
 from repro.kernels.topk_mag import ops as ref_topk
 from repro.kernels.vap_accum import kernel as ref_vap_kernel
 from repro.kernels.vap_accum import ref as ref_vap
 from repro.kernels.vap_accum.ops import vap_accum_tree as ref_vap_tree
 from repro_torch.kernels import resolve_device
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ps_apply import ops as apply_ops
 from repro_torch.kernels.ps_apply import ref as apply_ref
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan import ref as rg_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.topk_mag import ops as topk_ops
 from repro_torch.kernels.topk_mag import ref as topk_ref
 from repro_torch.kernels.vap_accum import ops as vap_ops
@@ -297,6 +318,198 @@ def test_vap_accum_rejects_bad_input():
 
 
 # ---------------------------------------------------------------------------
+# flash_attention, ssd_scan, rglru_scan (the LLM substrate)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's cases: b, sq, skv, kvh, G, dh, dv, window, cap
+FLASH_CASES = [
+    (2, 256, 256, 2, 2, 64, 64, None, None),
+    (2, 256, 256, 2, 2, 64, 64, 100, None),
+    (1, 300, 300, 1, 4, 32, 32, None, 50.0),
+    (1, 128, 128, 4, 1, 192, 128, None, None),     # MLA: dv != dh
+    (1, 512, 512, 1, 1, 128, 128, 64, 30.0),       # window + cap
+    (2, 64, 512, 2, 2, 64, 64, None, None),        # q is a suffix (prefill tail)
+]
+# b, l, h, p, g, n, chunk
+SSD_CASES = [
+    (2, 64, 4, 8, 2, 16, 16),
+    (1, 100, 6, 16, 1, 32, 32),     # padding path
+    (2, 256, 4, 64, 2, 128, 64),    # production-like dims
+    (1, 32, 2, 8, 2, 8, 32),        # single chunk
+]
+RGLRU_CASES = [(2, 64, 128), (1, 100, 50), (3, 256, 256), (1, 128, 4096)]
+_DT = {"float32": (jnp.float32, torch.float32),
+       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _ktol(dtype):
+    """tests/test_kernels.py's ``_tol``."""
+    return (dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16"
+            else dict(atol=5e-5, rtol=1e-4))
+
+
+def _to_t(a):
+    """A JAX array as a torch tensor of the same dtype (bfloat16 exact)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _flash_inputs(case, dtype, seed=0):
+    b, sq, skv, kvh, G, dh, dv, window, cap = case
+    rng = np.random.default_rng(seed)
+    jdt = _DT[dtype][0]
+    q = jnp.asarray(rng.normal(0, 1, (b, sq, kvh, G, dh)), jdt)
+    k = jnp.asarray(rng.normal(0, 1, (b, skv, kvh, dh)), jdt)
+    v = jnp.asarray(rng.normal(0, 1, (b, skv, kvh, dv)), jdt)
+    qp = jnp.arange(skv - sq, skv, dtype=jnp.int32)
+    kp = jnp.arange(skv, dtype=jnp.int32)
+    return (q, k, v, qp, kp), dict(window=window, cap=cap)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_plain_matches_reference(case, dtype):
+    """The port's plain version against the Pallas kernel (interpret mode)
+    and the jnp oracle, at tests/test_kernels.py's tolerances."""
+    args, kw = _flash_inputs(case, dtype)
+    got = fa_ops.flash_attention(*map(_to_t, args), **kw)
+    assert got.dtype == _DT[dtype][1]
+    assert tuple(got.shape) == case[:2] + (case[3], case[4], case[6])
+    pallas = ref_fa_kernel.flash_attention_pallas(*args, **kw, interpret=True)
+    oracle = jax.jit(ref_fa.attention, static_argnames=("window", "cap"))(
+        *args, **kw)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **_ktol(dtype))
+    np.testing.assert_allclose(_f32(got), _f32(oracle), **_ktol(dtype))
+
+
+def test_flash_attention_refuses_batch_positions_and_masks_sentinels():
+    args, kw = _flash_inputs(FLASH_CASES[0], "float32")
+    q, k, v, qp, kp = map(_to_t, args)
+    with pytest.raises(ValueError, match="shared"):
+        fa_ops.flash_attention(q, k, v, qp[None].expand(2, -1), kp)
+    # padded key slots carry 2**30 and are never seen; a row that sees no
+    # key gives 0
+    kp2 = kp.clone()
+    kp2[100:] = 2**30
+    got = fa_ops.flash_attention(q, k, v, qp, kp2)
+    want = fa_ref.attention(q[:, :, :, :, :], k[:, :100], v[:, :100], qp,
+                            kp2[:100])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    empty = fa_ops.flash_attention(q, k, v, qp - 1000, kp)
+    assert float(empty.abs().max()) == 0.0
+
+
+def _ssd_inputs(case, dtype, seed=0):
+    b, l, h, p, g, n, chunk = case
+    rng = np.random.default_rng(seed)
+    jdt = _DT[dtype][0]
+    x = jnp.asarray(rng.normal(0, 1, (b, l, h, p)), jdt)
+    dt = jnp.asarray(rng.uniform(0.01, 0.2, (b, l, h)), jnp.float32)
+    A = jnp.asarray(-rng.uniform(0.1, 1, (h,)), jnp.float32)
+    B = jnp.asarray(rng.normal(0, 1, (b, l, g, n)), jdt)
+    C = jnp.asarray(rng.normal(0, 1, (b, l, g, n)), jdt)
+    init = jnp.asarray(rng.normal(0, 0.5, (b, h, p, n)), jnp.float32)
+    return (x, dt, A, B, C, chunk), init
+
+
+def _ssd_tol(dtype):
+    """tests/test_kernels.py's SSD tolerances: bf16 inputs carry chunk
+    states in f32 in the kernel while the oracle's bulk einsums stay bf16."""
+    if dtype == "bfloat16":
+        return dict(atol=1e-1, rtol=5e-2), dict(atol=1e-2, rtol=1e-2)
+    return dict(atol=5e-5, rtol=1e-4), dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_scan_plain_matches_reference(case, dtype):
+    args, init = _ssd_inputs(case, dtype)
+    targs = [_to_t(a) for a in args[:5]] + [args[5]]
+    y, st = ssd_ops.ssd_scan(*targs, initial_state=_to_t(init))
+    assert y.dtype == _DT[dtype][1] and st.dtype == torch.float32
+    ytol, stol = _ssd_tol(dtype)
+    for want_y, want_s in (
+            ref_ssd_kernel.ssd_scan_pallas(*args, initial_state=init,
+                                           interpret=True),
+            jax.jit(ref_ssd.ssd_chunked, static_argnums=5)(
+                *args, initial_state=init)):
+        np.testing.assert_allclose(_f32(y), _f32(want_y), **ytol)
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_s), **stol)
+
+
+def test_ssd_step_matches_reference():
+    rng = np.random.default_rng(5)
+    b, h, p, n = 2, 4, 8, 16
+    arrs = [rng.normal(0, 1, s).astype(np.float32) for s in
+            ((b, h, p, n), (b, h, p), (b, h), (h,), (b, h, n), (b, h, n))]
+    arrs[2] = np.abs(arrs[2]) * 0.1
+    arrs[3] = -np.abs(arrs[3])
+    y, new = ssd_ops.ssd_step(*map(torch.from_numpy, arrs))
+    want_y, want_new = ref_ssd.ssd_step(*map(jnp.asarray, arrs))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(new.numpy(), np.asarray(want_new), atol=1e-5,
+                               rtol=1e-5)
+
+
+def _rglru_inputs(case, dtype, seed=0):
+    b, l, w = case
+    rng = np.random.default_rng(seed)
+    jdt = _DT[dtype][0]
+    a = jnp.asarray(rng.uniform(0.7, 0.999, (b, l, w)), jdt)
+    bb = jnp.asarray(rng.normal(0, 0.1, (b, l, w)), jdt)
+    init = jnp.asarray(rng.normal(0, 1, (b, w)), jnp.float32)
+    return a, bb, init
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=str)
+def test_rglru_linear_recurrence_plain_matches_reference(case, dtype):
+    """The port's sequential recurrence against the reference's associative
+    scan (tests/test_kernels.py's tolerances); h_last is the last step."""
+    a, bb, init = _rglru_inputs(case, dtype)
+    h, h_last = rg_ops.linear_recurrence(_to_t(a), _to_t(bb), _to_t(init))
+    want_h, want_last = jax.jit(ref_rg.linear_recurrence)(a, bb, init)
+    assert h.dtype == _DT[dtype][1] and h_last.dtype == torch.float32
+    np.testing.assert_allclose(_f32(h), _f32(want_h), **_ktol(dtype))
+    np.testing.assert_allclose(h_last.numpy(), np.asarray(want_last),
+                               atol=1e-2 if dtype == "bfloat16" else 1e-5)
+    torch.testing.assert_close(h_last, h[:, -1].float(), rtol=0,
+                               atol=0 if dtype == "float32" else 1e-2)
+
+
+def test_rglru_gates_and_step_match_reference():
+    rng = np.random.default_rng(7)
+    b, l, w = 2, 96, 64
+    x = rng.normal(0, 1, (b, l, w)).astype(np.float32)
+    r = rng.uniform(0, 1, (b, l, w)).astype(np.float32)
+    i = rng.uniform(0, 1, (b, l, w)).astype(np.float32)
+    lam = rng.normal(0, 1, (w,)).astype(np.float32)
+    h, h_last = rg_ops.rglru(*map(torch.from_numpy, (x, r, i, lam)))
+    want_h, want_last = jax.jit(ref_rg.rglru)(*map(jnp.asarray, (x, r, i, lam)))
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=5e-5)
+    np.testing.assert_allclose(h_last.numpy(), np.asarray(want_last),
+                               atol=5e-5)
+    hs = torch.zeros((b, w))
+    hj = jnp.zeros((b, w))
+    for t in range(4):
+        _, hs = rg_ops.rglru_step(hs, *(torch.from_numpy(a[:, t])
+                                        for a in (x, r, i)),
+                                  torch.from_numpy(lam))
+        _, hj = ref_rg.rglru_step(hj, *(jnp.asarray(a[:, t])
+                                        for a in (x, r, i)), jnp.asarray(lam))
+        np.testing.assert_allclose(hs.numpy(), np.asarray(hj), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
 # no fallback: a tensor off the CPU goes to the kernel or raises
 # ---------------------------------------------------------------------------
 
@@ -334,6 +547,23 @@ def test_wrappers_never_fall_back_to_plain(monkeypatch):
     v = torch.empty(8, dtype=torch.float32, device="meta")
     with pytest.raises((RuntimeError, ValueError)):
         vap_ops.vap_accum_(v, torch.empty_like(v), torch.empty_like(v))
+
+    monkeypatch.setattr(fa_ref, "attention", forbidden)
+    monkeypatch.setattr(ssd_ref, "ssd_chunked", forbidden)
+    monkeypatch.setattr(rg_ref, "linear_recurrence", forbidden)
+    q = torch.empty((1, 4, 1, 2, 8), device="meta")
+    k = torch.empty((1, 4, 1, 8), device="meta")
+    pos = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fa_ops.flash_attention(q, k, k, pos, pos)
+    x = torch.empty((1, 8, 2, 4), device="meta")
+    bc = torch.empty((1, 8, 1, 4), device="meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ssd_ops.ssd_scan(x, torch.empty((1, 8, 2), device="meta"),
+                         torch.empty(2, device="meta"), bc, bc, 4)
+    a = torch.empty((1, 8, 4), device="meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        rg_ops.linear_recurrence(a, torch.empty_like(a))
 
 
 # ---------------------------------------------------------------------------
@@ -426,3 +656,92 @@ def test_vap_accum_kernel_refuses_other_dtypes(cuda):
         vap_ops.vap_accum_(y, y.clone().half(), y.clone())
     with pytest.raises(ValueError, match="overlap"):
         vap_ops.vap_accum_(y, y, y.clone())
+
+
+# (flash case, dtype) at the stress cases and a RecurrentGemma-like MQA
+# shape: d 256, 16 query heads on one kv head, window, padded tails
+_FLASH_CARD = ([(c, d) for c in FLASH_CASES for d in ("float32", "bfloat16")]
+               + [((2, 333, 333, 1, 16, 256, 256, 128, None), "bfloat16"),
+                  ((1, 96, 1000, 1, 16, 256, 256, None, 20.0), "float32")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", _FLASH_CARD, ids=str)
+def test_flash_attention_kernel_matches_plain(case, dtype, cuda):
+    args, kw = _flash_inputs(case, dtype, seed=1)
+    q, k, v, qp, kp = (_to_t(a).to(cuda) for a in args)
+    want = fa_ref.attention(q, k, v, qp, kp, **kw)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1 and got.dtype == q.dtype
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_ktol(dtype))
+    kp2 = kp.clone()
+    kp2[kp.shape[0] // 2:] = 2**30                 # empty ring slots
+    torch.testing.assert_close(
+        fa_ops.flash_attention(q, k, v, qp, kp2, **kw).float(),
+        fa_ref.attention(q, k, v, qp, kp2, **kw).float(), **_ktol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES + [(1, 600, 24, 64, 1, 128, 256)],
+                         ids=str)
+def test_ssd_scan_kernel_matches_plain(case, dtype, cuda):
+    """The kernel does all its arithmetic in float32, as the TPU kernel
+    does, so its oracle is the plain version in float32 on the same values
+    (bfloat16 inputs widened exactly): y to the bfloat16 rounding of the
+    output (2^-9 relative, rtol 4e-3) plus float32 summation order (atol
+    1e-3); the final state, float32 on both sides, to 1e-4.  (The plain
+    version in bfloat16 keeps its bulk einsums in bfloat16 and differs from
+    both by its own rounding; ``chip_smoke.py`` reports that distance.)"""
+    args, init = _ssd_inputs(case, dtype, seed=1)
+    targs = [_to_t(a).to(cuda) for a in args[:5]] + [args[5]]
+    init_t = _to_t(init).to(cuda)
+    want_y, want_s = ssd_ref.ssd_chunked(*(t.float() for t in targs[:5]),
+                                         targs[5], initial_state=init_t)
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd_scan(*targs, initial_state=init_t)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1 and y.dtype == targs[0].dtype
+    ytol = (dict(atol=1e-3, rtol=4e-3) if dtype == "bfloat16"
+            else dict(atol=5e-5, rtol=1e-4))
+    np.testing.assert_allclose(_f32(y.cpu()), want_y.cpu().numpy(), **ytol)
+    np.testing.assert_allclose(st.cpu().numpy(), want_s.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True], ids=["zeros", "initial"])
+@pytest.mark.parametrize("case", RGLRU_CASES + [(4, 333, 4096)], ids=str)
+def test_rglru_kernel_matches_plain_bitwise(case, init, cuda):
+    a, bb, h0 = _rglru_inputs(case, "float32", seed=2)
+    ac, bc, hc = _to_t(a), _to_t(bb), _to_t(h0) if init else None
+    want_h, want_last = rg_ref.linear_recurrence(ac, bc, hc)
+    before = rg_ops.launches
+    h, h_last = rg_ops.linear_recurrence(
+        ac.to(cuda), bc.to(cuda), hc.to(cuda) if init else None)
+    torch.cuda.synchronize()
+    assert rg_ops.launches == before + 1
+    torch.testing.assert_close(h.cpu(), want_h, rtol=0, atol=0)
+    torch.testing.assert_close(h_last.cpu(), want_last, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_llm_kernels_refuse_what_they_do_not_take(cuda):
+    a = torch.zeros((1, 4, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        rg_ops.linear_recurrence(a, a)
+    q = torch.zeros((1, 4, 1, 1, 6), device=cuda)
+    k = torch.zeros((1, 4, 1, 6), device=cuda)
+    pos = torch.arange(4, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fa_ops.flash_attention(q, k, k, pos, pos)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), k.half(), k.half(), pos, pos)
+    x = torch.zeros((1, 8, 2, 128), device=cuda)
+    bc = torch.zeros((1, 8, 1, 16), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_ops.ssd_scan(x, torch.zeros((1, 8, 2), device=cuda),
+                         torch.zeros(2, device=cuda), bc, bc, 4)
