@@ -13,7 +13,9 @@ Phases, each printed as one JSON line:
   lda      the port's first path: run_lda(backend="runtime", device="cuda")
            with a 50,000 x 1,000 float64 word_topic master on the card, the
            kernels' launch counters set to 0 just before and read just after,
-           under torch.profiler for the device's busy time by kernel name.
+           under torch.profiler for the device's busy time by kernel name
+           and ps_apply's own (its kernel, and its grouping's sort kernels,
+           by name; each must show whenever ps_apply launched).
            The shape of every kernel call is noted.  Checks: no violations,
            master == x0 + sum(updates) exactly, every token counted once,
            topic == word_topic.sum(0), a finite rising log-likelihood, and
@@ -40,7 +42,8 @@ Phases, each printed as one JSON line:
            workers, 3 clocks; then logistic regression (400 x 20, the JAX
            package's convergence-benchmark size) as a correctness and
            launch check only.  Launch counters set to 0 just before each
-           and read just after.  Checks: no violations, a falling loss,
+           and read just after; ps_apply's device seconds as in lda.
+           Checks: no violations, a falling loss,
            ps_apply launched (and topk_mag for MF: logreg's one key needs no
            send order).
   serve    LLM serving, as examples/serve_demo.py drives the JAX package:
@@ -63,7 +66,9 @@ Phases, each printed as one JSON line:
            shapes the paths gave it (ps_apply's median call per table, no
            sentinel rows, as the shard sends none; MF's too; the serve
            path's first call for the LLM kernels) and at stress shapes
-           (tests/test_kernels.py's cases for the LLM kernels).  The
+           (tests/test_kernels.py's cases for the LLM kernels; for ps_apply
+           a batch 40,000 deep with 2% sentinels in f64 and f32, and 4,096
+           entries all on one row).  The
            parameter-server kernels and rglru_scan are held bitwise (for
            vap_accum, NaN meets NaN; its payload is free); flash_attention to
            the bfloat16 output's rounding at the serve path's call (atol
@@ -81,6 +86,11 @@ Phases, each printed as one JSON line:
            window as a boolean mask; none for the two scans), and the least
            time the card could take (bytes over 3.35 TB/s, or operations
            over the peak rate for the inputs' type, whichever is larger).
+           ps_apply's ms is the call as the shard makes it (the grouping,
+           torch.sort(rows, stable=True), and the kernel); group_ms is the
+           sort alone, apply_ms the kernel alone on its output, and
+           group_int32_ms the sort of the rows cast to int32, cast included
+           (whether the cast would pay).
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure raises: the exit code
@@ -155,15 +165,18 @@ def bound(nbytes: float, nops: float, dtype) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def check_ps_apply(dev, R, C, N, dtype, seed, sentinels):
+def check_ps_apply(dev, R, C, N, dtype, seed, sentinels, one_row=False):
     """At the main path's shapes ``sentinels`` is off, as the shard never
-    sends row R; the stress cases plant 2% sentinel no-ops."""
+    sends row R; the stress cases plant 2% sentinel no-ops; ``one_row``
+    puts every entry on one row (a hot word: one run walked serially)."""
     from repro_torch.kernels.ps_apply import ops, ref
 
     rng = np.random.default_rng(seed)
     rows = rng.integers(0, R, size=N).astype(np.int64)   # ~N^2/2R duplicates
     if sentinels:
         rows[rng.random(N) < 0.02] = R
+    if one_row:
+        rows[:] = rng.integers(0, R)
     dense_c = torch.from_numpy(rng.normal(size=(R, C))).to(dtype)
     delta_c = torch.from_numpy(rng.normal(size=(N, C))).to(dtype)
     rows_c = torch.from_numpy(rows)
@@ -178,9 +191,16 @@ def check_ps_apply(dev, R, C, N, dtype, seed, sentinels):
         raise AssertionError(f"ps_apply {R}x{C} N={N} {dtype}: kernel != "
                              f"plain (max abs err {err})")
 
-    # timed as the shard calls it: rows checked on the host beforehand
+    # timed as the shard calls it (rows checked on the host beforehand):
+    # the grouping sort and the kernel; then each alone, and the sort of
+    # the rows as int32
     ms = cuda_ms(lambda: ops.scatter_add_(got, rows_d, delta_d,
                                           rows_checked=True))
+    group_ms = cuda_ms(lambda: torch.sort(rows_d, stable=True))
+    keys, perm = torch.sort(rows_d, stable=True)
+    apply_ms = cuda_ms(lambda: ops._apply_grouped_(got, keys, perm, delta_d))
+    group_int32_ms = cuda_ms(
+        lambda: torch.sort(rows_d.to(torch.int32), stable=True))
     plain_c = dense_c.clone()
     plain_ms = host_ms(lambda: ref.scatter_add_(plain_c, rows_c, delta_c))
     # the library call has no sentinel: give it the real rows only
@@ -195,10 +215,13 @@ def check_ps_apply(dev, R, C, N, dtype, seed, sentinels):
     # sentinel's delta row is never read), every row index read
     nbytes = 2 * touched * C * esize + real.size * C * esize + N * 8
     bound_ms, bound_by = bound(nbytes, real.size * C, dtype)
-    return {"shape": f"dense {R}x{C} rows {N} {str(dtype)[6:]}",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "unique_rows": int(touched)}
+    return {"shape": f"dense {R}x{C} rows {N} {str(dtype)[6:]}"
+                     + (" one row" if one_row else ""),
+            "max_abs_err": err, "ms": ms, "group_ms": group_ms,
+            "apply_ms": apply_ms, "group_int32_ms": group_int32_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "unique_rows": int(touched)}
 
 
 def check_topk_mag(dev, n, seed):
@@ -509,6 +532,27 @@ def _short(name: str) -> str:
     return name[:200]
 
 
+# ps_apply's kernels by name: its own, and its grouping's (torch.sort's
+# sort kernels; no other sort runs on the lda and apps paths).  The sort's
+# index fill and memsets cannot be told from others by name and are not
+# counted.
+PS_APPLY_KERNEL = re.compile(r"ps_apply_kernel")
+SORT_KERNEL = re.compile(r"sort", re.IGNORECASE)
+
+
+def ps_apply_seconds(device_s: dict, launched: int) -> dict:
+    """ps_apply's device seconds, its kernel's and its grouping's.  Fails
+    if it launched and either part matched no kernel: a renamed kernel
+    must not shrink the number unseen."""
+    kernel = sum(v for k, v in device_s.items() if PS_APPLY_KERNEL.match(k))
+    group = sum(v for k, v in device_s.items() if SORT_KERNEL.search(k))
+    if launched and not (kernel > 0 and group > 0):
+        raise AssertionError(f"ps_apply launched {launched} times, but its "
+                             f"kernel ({kernel} s) or its sort ({group} s) "
+                             f"matched no kernel by name")
+    return {"kernel": kernel, "group": group}
+
+
 def device_seconds(prof) -> dict:
     """Device time by kernel / copy name, from the profiler's device
     events."""
@@ -714,6 +758,8 @@ def run_lda_phase(dev, corpus, corpus_s):
           "device_s_by_name": dict(sorted(device_s.items(),
                                           key=lambda kv: -kv[1])[:8]),
           "peak_device_bytes": peak, "launches": launches,
+          "ps_apply_device_s": ps_apply_seconds(device_s,
+                                                launches["ps_apply"]),
           "rows_per_apply": rows_applied / launches["ps_apply"],
           "log_likelihood": lls, "violations": 0, "master_exact": True})
     return launches, calls
@@ -921,6 +967,8 @@ def run_apps_phase(dev):
                      "device_idle_share": 1.0 - busy_s / wall_s,
                      "device_s_by_name": dict(sorted(
                          device_s.items(), key=lambda kv: -kv[1])[:6]),
+                     "ps_apply_device_s": ps_apply_seconds(
+                         device_s, run["launches"]["ps_apply"]),
                      "loss_per_clock": losses,
                      "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
                      "launches": run["launches"],
@@ -1151,7 +1199,8 @@ def main() -> None:
     launches["ssd_scan"] = serve_launches["mamba2-130m"]["ssd_scan"]
 
     # first the paths' shapes (the table's rows), then stress shapes: a
-    # batch 40,000 rows deep with sentinels in f64 and f32, 4,096 keys, and
+    # batch 40,000 rows deep with sentinels in f64 and f32, a batch of 4,096
+    # entries all on one row, 4,096 keys, and
     # for vap_accum a bfloat16 delta, an odd length on the vector and the
     # scalar path, and NaN / inf / -0.0 in delta
     apply_shapes, topk_lengths = path_shapes(calls)
@@ -1164,7 +1213,9 @@ def main() -> None:
         + [check_ps_apply(dev, R_, C_, N_, torch.float64, 60 + i, False)
            for i, (R_, C_, N_) in enumerate(app_shapes)]
         + [check_ps_apply(dev, R, C, 40_000, torch.float64, 10, True),
-           check_ps_apply(dev, R, C, 40_000, torch.float32, 11, True)],
+           check_ps_apply(dev, R, C, 40_000, torch.float32, 11, True),
+           check_ps_apply(dev, R, C, 4_096, torch.float64, 12, False,
+                          one_row=True)],
         "topk_mag": [check_topk_mag(dev, n, 20 + i)
                      for i, n in enumerate(topk_lengths)]
         + [check_topk_mag(dev, 4_096, 30)],

@@ -4,7 +4,9 @@
 to land a coalesced batch of row updates in its dense master block.  It
 keeps the reference's contract (``np.add.at`` order, sentinel row ``R``), so
 the runtime's final state stays bitwise equal to the simulator's on either
-device.
+device.  On the card it groups the batch's entries by row
+(``torch.sort(rows, stable=True)``) and launches the row-grouped kernel on
+that order; on the CPU it runs ``ref``.
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ launches = 0
 _COUNT_LOCK = threading.Lock()
 
 _ENTRY = {torch.float64: "ps_apply_f64", torch.float32: "ps_apply_f32"}
+# device, dense, R, C, keys, perm, delta, N, stream
 _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+         ctypes.c_void_p]
 
 
 @functools.cache
@@ -75,12 +79,25 @@ def scatter_add_(dense: torch.Tensor, rows: torch.Tensor,
     if dense.device.type == "cpu":
         return ref.scatter_add_(dense, rows, delta)
     R, C = dense.shape
-    N = rows.shape[0]
-    if N == 0 or C == 0 or R == 0:
+    if rows.shape[0] == 0 or C == 0 or R == 0:
         return dense
+    # the grouping: bookkeeping the TPU kernel's sequential loop does not
+    # need (kernel.cu's note); the stable order is what the kernel walks
+    keys, perm = torch.sort(rows, stable=True)
+    return _apply_grouped_(dense, keys, perm, delta)
+
+
+def _apply_grouped_(dense: torch.Tensor, keys: torch.Tensor,
+                    perm: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on the stable sort's ``(keys, perm)``: each run of
+    equal keys is walked in order by one thread a column, landing in
+    ``dense`` in place.  Launches on the current stream and does not
+    synchronise.  Unchecked: ``scatter_add_`` is the entry point."""
+    R, C = dense.shape
     err = _entry(_ENTRY[dense.dtype])(
-        dense.device.index, dense.data_ptr(), R, C, rows.data_ptr(),
-        delta.data_ptr(), N, torch.cuda.current_stream(dense.device).cuda_stream)
+        dense.device.index, dense.data_ptr(), R, C, keys.data_ptr(),
+        perm.data_ptr(), delta.data_ptr(), keys.shape[0],
+        torch.cuda.current_stream(dense.device).cuda_stream)
     if err:
         raise RuntimeError(f"ps_apply kernel launch failed: CUDA error {err}")
     global launches

@@ -6,7 +6,9 @@ of a key lives on ``active[r % len(active)]`` —
 contiguous float64 tensor per key on the runtime's device**.  A batch of row
 updates lands in the block as one ordered scatter-add per key
 (:mod:`repro_torch.kernels.ps_apply`): on the card every apply goes through
-the CUDA kernel; on the CPU a single part (unique rows) is a fancy-index add
+the CUDA kernel, which groups the batch's entries by row (a stable sort)
+and walks each row's entries in submission order, one thread a (row,
+column); on the CPU a single part (unique rows) is a fancy-index add
 and a coalesced batch takes the kernel's plain version, the reference's two
 branches.  Either way duplicates accumulate in submission order, so the
 master stays bitwise ``x0 + Σ updates`` in the simulator's arithmetic.
@@ -274,8 +276,9 @@ class ServerShard:
                 else:
                     # rows may repeat across parts: accumulate duplicates in
                     # submission order (np.add.at order).  On the card every
-                    # apply takes this kernel: unique rows are a special case
-                    # of the same contract, bitwise the same result.
+                    # apply takes this kernel, which sorts the entries by row
+                    # (stable) and walks each row's run in order; unique rows
+                    # are runs of one, bitwise the same result.
                     apply_ops.scatter_add_(dense, idx, d, rows_checked=True)
         for msg in run:
             self._route_delivery(msg)

@@ -90,13 +90,42 @@ def _oracle(dense, rows, delta):
     return out
 
 
+# the kernel's own cases, beside _APPLY_CASES: (R, C, N, kind) where kind
+# "one_row" puts every entry on one row (a single run walked serially),
+# "unique" gives N distinct rows in shuffled order (every thread a run's
+# head), "sentinel" makes every entry the no-op row R; C = 1 with heavy
+# duplicates is LDA's topic block, small; N = 1; C = 257 (not a multiple of
+# a warp); a deep batch drawn from a third of the rows
+_APPLY_CARD_CASES = (_APPLY_CASES
+                     + [(2000, 257, 5000), (64, 16, 4096, "one_row"),
+                        (50, 1, 3000), (300, 24, 300, "unique"),
+                        (10, 5, 1), (12, 7, 50, "sentinel"),
+                        (3000, 48, 20_000)])
+
+
+def _card_apply_inputs(case, dtype):
+    R, C, N, *kind = case
+    dense, rows, delta = _apply_inputs(2, R, C, N, dtype, sentinel=not kind)
+    rng = np.random.default_rng(3)
+    if kind == ["one_row"]:
+        rows[:] = R // 2
+    elif kind == ["unique"]:
+        rows = rng.permutation(R)[:N].astype(np.int64)
+    elif kind == ["sentinel"]:
+        rows[:] = R
+    return dense, rows, delta
+
+
 @pytest.mark.parametrize("dtype", _DTYPES, ids=["f32", "f64"])
-@pytest.mark.parametrize("case", _APPLY_CASES, ids=str)
+@pytest.mark.parametrize("case", _APPLY_CARD_CASES, ids=str)
 def test_ps_apply_plain_matches_reference(case, dtype, monkeypatch):
+    """The plain version the kernel is held to, at every case the kernel
+    meets on the card: the reference's np.add.at over the real rows."""
     monkeypatch.setenv("REPRO_PALLAS", "off")
-    dense, rows, delta = _apply_inputs(0, *case, dtype)
+    dense, rows, delta = _card_apply_inputs(case, dtype)
+    keep = rows < dense.shape[0]
     want = dense.copy()
-    ref_apply.scatter_add_inplace(want, rows, delta)    # == np.add.at
+    ref_apply.scatter_add_inplace(want, rows[keep], delta[keep])
     got = torch.from_numpy(dense.copy())
     out = apply_ops.scatter_add_(got, torch.from_numpy(rows),
                                  torch.from_numpy(delta))
@@ -573,9 +602,9 @@ def test_wrappers_never_fall_back_to_plain(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", _DTYPES, ids=["f32", "f64"])
-@pytest.mark.parametrize("case", _APPLY_CASES + [(2000, 257, 5000)], ids=str)
+@pytest.mark.parametrize("case", _APPLY_CARD_CASES, ids=str)
 def test_ps_apply_kernel_matches_plain(case, dtype, cuda):
-    dense, rows, delta = _apply_inputs(2, *case, dtype, sentinel=True)
+    dense, rows, delta = _card_apply_inputs(case, dtype)
     want = apply_ref.scatter_add_(torch.from_numpy(dense.copy()),
                                   torch.from_numpy(rows),
                                   torch.from_numpy(delta))
@@ -586,6 +615,47 @@ def test_ps_apply_kernel_matches_plain(case, dtype, cuda):
     torch.cuda.synchronize()
     assert apply_ops.launches == before + (1 if case[2] else 0)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _oracle(dense, rows, delta))
+
+
+@pytest.mark.cuda
+def test_ps_apply_kernel_rejects_bad_input(cuda):
+    """On the card as on the CPU: a wrong dtype or a non-contiguous tensor
+    raises before anything is launched."""
+    dense = torch.zeros((4, 3), dtype=torch.float64, device=cuda)
+    rows = torch.tensor([0, 4], device=cuda)
+    before = apply_ops.launches
+    with pytest.raises(TypeError):
+        apply_ops.scatter_add_(dense, rows, torch.zeros(
+            (2, 3), dtype=torch.float32, device=cuda))
+    with pytest.raises(TypeError):
+        apply_ops.scatter_add_(dense, rows.to(torch.int32), torch.zeros(
+            (2, 3), dtype=torch.float64, device=cuda))
+    with pytest.raises(TypeError):
+        apply_ops.scatter_add_(dense.half(), rows, torch.zeros(
+            (2, 3), dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError):
+        apply_ops.scatter_add_(dense, rows, torch.zeros(
+            (3, 2), dtype=torch.float64, device=cuda).t())
+    with pytest.raises(ValueError):
+        apply_ops.scatter_add_(torch.zeros((3, 4), dtype=torch.float64,
+                                           device=cuda).t(), rows,
+                               torch.zeros((2, 3), dtype=torch.float64,
+                                           device=cuda))
+    with pytest.raises(ValueError):
+        apply_ops.scatter_add_(dense, torch.tensor([0, 1, 2, 3], device=cuda)
+                               [::2], torch.zeros((2, 3), dtype=torch.float64,
+                                                  device=cuda))
+    with pytest.raises(ValueError):
+        apply_ops.scatter_add_(dense, rows.cpu(), torch.zeros(
+            (2, 3), dtype=torch.float64, device=cuda))
+    with pytest.raises(IndexError):
+        apply_ops.scatter_add_(dense, torch.tensor([0, 5], device=cuda),
+                               torch.zeros((2, 3), dtype=torch.float64,
+                                           device=cuda))
+    assert apply_ops.launches == before
+    assert not dense.any()
 
 
 @pytest.mark.cuda
