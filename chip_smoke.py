@@ -51,7 +51,10 @@ Phases, each printed as one JSON line:
            ring KV caches), for RecurrentGemma-9B and Mamba2-130M at their
            full published widths in bfloat16, random weights drawn on the
            card from --seed (default 0); 4 requests of 4,096 prompt tokens
-           (drawn from the seed), 32 generated tokens each.  Per model: prefill ms,
+           (drawn from the seed), 32 generated tokens each.  Per model: its
+           parameters (the tree without head_f32, the float32 master copy
+           of the head, whose bytes are reported apart; param_bytes is the
+           tree's memory, head included), prefill ms,
            decode ms a step, tokens a second, peak device memory, and from
            a profiled repeat the device's busy time, idle share and time by
            kernel name.  Launch counters set to 0 just before the prefill
@@ -66,7 +69,11 @@ Phases, each printed as one JSON line:
            shapes the paths gave it (ps_apply's median call per table, no
            sentinel rows, as the shard sends none; MF's too; the serve
            path's first call for the LLM kernels) and at stress shapes
-           (tests/test_kernels.py's cases for the LLM kernels; for ps_apply
+           (tests/test_kernels.py's cases for the LLM kernels, and for
+           flash_attention the bfloat16 kernel's edges: every head-dim
+           tier, dv != dh, ragged sq / skv, a q suffix, 16 heads at d 256
+           with a window and with a cap, one serve-like request, empty key
+           slots; for ps_apply
            a batch 40,000 deep with 2% sentinels in f64 and f32, and 4,096
            entries all on one row).  The
            parameter-server kernels and rglru_scan are held bitwise (for
@@ -90,7 +97,10 @@ Phases, each printed as one JSON line:
            torch.sort(rows, stable=True), and the kernel); group_ms is the
            sort alone, apply_ms the kernel alone on its output, and
            group_int32_ms the sort of the rows cast to int32, cast included
-           (whether the cast would pay).
+           (whether the cast would pay).  Each flash_attention case names
+           the entry that ran (bfloat16: wgmma on the tensor cores;
+           float32: the float32 pipes), its TFLOP/s and its share of the
+           bound.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure raises: the exit code
@@ -345,6 +355,24 @@ SSD_SAME_DTYPE_TOL = {torch.float32: dict(atol=5e-5, rtol=1e-4),
                       torch.bfloat16: dict(atol=1e-1, rtol=5e-2)}
 
 
+# which of the kernel's two entries a dtype runs
+FLASH_ENTRY = {torch.bfloat16: "wgmma bf16 (tensor cores, TMA ring)",
+               torch.float32: "float32 pipes"}
+# the bfloat16 kernel's edges beyond tests/test_kernels.py's cases: each
+# head-dim tier (16-64, 65-128, 129-256, zero-padded), dv above and below
+# dh, sq and skv off the 128-row and 64-key tiles, a q suffix, 16 heads at d
+# 256 with a window and with a cap, and a serve-like call (one request);
+# then the fifth again with its second half of key slots empty (2**30)
+FLASH_BF16_EDGES = ((1, 200, 200, 2, 2, 16, 16, None, None),
+                    (1, 130, 130, 1, 2, 48, 80, 50, None),
+                    (2, 257, 257, 2, 4, 256, 256, None, None),
+                    (1, 128, 1000, 2, 2, 128, 64, None, None),
+                    (1, 333, 1000, 1, 16, 256, 256, 300, None),
+                    (1, 257, 257, 1, 16, 256, 256, 100, None),
+                    (1, 200, 200, 1, 16, 256, 256, None, 30.0),
+                    (1, 4096, 4096, 1, 16, 256, 256, 2048, None))
+
+
 def _dname(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -385,9 +413,13 @@ def check_flash(dev, q, k, v, q_pos, k_pos, window=None, cap=None,
     esize = q.element_size()
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * esize \
         + 4 * (sq + skv)
-    bound_ms, bound_by = bound(nbytes, 2 * pairs * (dh + dv), q.dtype)
+    flops = 2 * pairs * (dh + dv)
+    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
     return {"shape": f"q {'x'.join(map(str, q.shape))} kv {skv}x{dv} "
                      f"{_dname(q.dtype)} window {window} cap {cap}",
+            "entry": FLASH_ENTRY[q.dtype],
+            "empty_key_slots": int((k_pos == 2**30).sum()),
+            "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
             "max_abs_err": err, "mean_abs_plain": mean_abs_want,
             "tolerance": tol[q.dtype],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -479,22 +511,27 @@ def llm_stress_cases(dev):
     def uniform(lo, hi, *shape):
         return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
 
+    def flash(case, dtype, sentinels=False):
+        b, sq, skv, kvh, G, dh, dv, window, cap = case
+        k_pos = torch.arange(skv, dtype=torch.int32, device=dev)
+        if sentinels:                       # the ring's empty slots
+            k_pos[skv // 2:] = 2**30
+        return check_flash(
+            dev, randn(b, sq, kvh, G, dh, dtype=dtype),
+            randn(b, skv, kvh, dh, dtype=dtype),
+            randn(b, skv, kvh, dv, dtype=dtype),
+            torch.arange(skv - sq, skv, dtype=torch.int32, device=dev),
+            k_pos, window=window, cap=cap)
+
     out = {"flash_attention": [], "ssd_scan": [], "rglru_scan": []}
     for dtype in (torch.float32, torch.bfloat16):
-        for b, sq, skv, kvh, G, dh, dv, window, cap in (
-                (2, 256, 256, 2, 2, 64, 64, None, None),
-                (2, 256, 256, 2, 2, 64, 64, 100, None),
-                (1, 300, 300, 1, 4, 32, 32, None, 50.0),
-                (1, 128, 128, 4, 1, 192, 128, None, None),
-                (1, 512, 512, 1, 1, 128, 128, 64, 30.0),
-                (2, 64, 512, 2, 2, 64, 64, None, None)):
-            out["flash_attention"].append(check_flash(
-                dev, randn(b, sq, kvh, G, dh, dtype=dtype),
-                randn(b, skv, kvh, dh, dtype=dtype),
-                randn(b, skv, kvh, dv, dtype=dtype),
-                torch.arange(skv - sq, skv, dtype=torch.int32, device=dev),
-                torch.arange(skv, dtype=torch.int32, device=dev),
-                window=window, cap=cap))
+        for case in ((2, 256, 256, 2, 2, 64, 64, None, None),
+                     (2, 256, 256, 2, 2, 64, 64, 100, None),
+                     (1, 300, 300, 1, 4, 32, 32, None, 50.0),
+                     (1, 128, 128, 4, 1, 192, 128, None, None),
+                     (1, 512, 512, 1, 1, 128, 128, 64, 30.0),
+                     (2, 64, 512, 2, 2, 64, 64, None, None)):
+            out["flash_attention"].append(flash(case, dtype))
         for b, l, h, p, gr, n, chunk in ((2, 64, 4, 8, 2, 16, 16),
                                          (1, 100, 6, 16, 1, 32, 32),
                                          (2, 256, 4, 64, 2, 128, 64),
@@ -509,6 +546,10 @@ def llm_stress_cases(dev):
         out["rglru_scan"].append(check_rglru(
             dev, uniform(0.7, 0.999, b, l, w), randn(b, l, w, std=0.1),
             randn(b, w)))
+    out["flash_attention"] += [flash(case, torch.bfloat16)
+                               for case in FLASH_BF16_EDGES]
+    out["flash_attention"].append(flash(FLASH_BF16_EDGES[4], torch.bfloat16,
+                                        sentinels=True))
     return out
 
 
@@ -1021,7 +1062,15 @@ def run_serve_phase(dev, seed):
         params = M.init_params(cfg, seed=seed, device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t
-        n_params = sum(x.numel() for x in tree_leaves(params))
+        # the model's parameters: the loaded tree without head_f32, the
+        # float32 master copy of the head kept for the prefill's float32
+        # logits; param_bytes is the tree's memory on the card, head
+        # included
+        head = params.get("head_f32")
+        head_f32_bytes = (0 if head is None
+                          else head.numel() * head.element_size())
+        n_params = sum(x.numel() for x in tree_leaves(params)) \
+            - (0 if head is None else head.numel())
         param_bytes = sum(x.numel() * x.element_size()
                           for x in tree_leaves(params))
         shape = InputShape("serve", seq_len=SERVE_PROMPT + SERVE_GEN,
@@ -1103,6 +1152,7 @@ def run_serve_phase(dev, seed):
         n_decode = SERVE_GEN - 1
         lines[name] = {
             "params": n_params, "param_bytes": param_bytes,
+            "head_f32_bytes": head_f32_bytes,
             "dtype": cfg.dtype, "layers": cfg.n_layers,
             "d_model": cfg.d_model, "vocab": cfg.vocab_size,
             "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,

@@ -61,7 +61,14 @@ def _check(q, k, v, q_pos, k_pos) -> None:
                         f"of float32 / bfloat16, got {q.dtype} / {k.dtype} / "
                         f"{v.dtype}")
     dv = v.shape[-1]
-    if dh % 4 or dh > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+    if q.dtype == torch.bfloat16:
+        if dh % 16 or dv % 16 or dh > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention: the bfloat16 kernel takes dh "
+                             f"and dv multiples of 16, at most "
+                             f"{MAX_HEAD_DIM}; got {dh}, {dv}")
+        if max(sq, k.shape[1]) >= 2**31:
+            raise ValueError("flash_attention: sq and skv must be < 2^31")
+    elif dh % 4 or dh > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: the kernel takes dh a multiple "
                          f"of 4 and dh, dv <= {MAX_HEAD_DIM}; got {dh}, {dv}")
     if b * kvh * q.shape[3] > 65535:
@@ -81,8 +88,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q (b, sq, kvh, G, dh), k (b, skv, kvh, dh), v (b, skv, kvh, dv), q_pos
     (sq,) and k_pos (skv,) integers (``2**30`` marks an empty key slot).
     Returns (b, sq, kvh, G, dv) in q's dtype.  On the card q, k, v are all
-    float32 or all bfloat16, read into float32 with a float32 accumulator,
-    dh a multiple of 4 and dh, dv <= 256; anything else raises.
+    bfloat16 (the tensor-core kernel: dh and dv multiples of 16, at most
+    256, P rounded to bfloat16 for the second product) or all float32 (the
+    float32-pipe kernel: dh a multiple of 4, dh and dv at most 256), with
+    float32 accumulators; anything else raises.
     """
     _check(q, k, v, q_pos, k_pos)
     if q.device.type == "cpu":
@@ -92,7 +101,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, kvh, G, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if skv == 0:                # no key at all: every row gives 0
+        return out.zero_()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the bfloat16 kernel reads q, k, v "
+                         "with TMA, which needs 16-byte aligned tensors")
     qp = q_pos.to(torch.int32).contiguous()
     kp = k_pos.to(torch.int32).contiguous()
     err = _entry(_ENTRY[q.dtype])(
@@ -103,7 +117,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+                           f"error {err}" + (" (libcuda's CUresult, "
+                                             "encoding a TMA tensor map)"
+                                             if err < 0 else ""))
     global launches
     with _COUNT_LOCK:
         launches += 1

@@ -729,10 +729,22 @@ def test_vap_accum_kernel_refuses_other_dtypes(cuda):
 
 
 # (flash case, dtype) at the stress cases and a RecurrentGemma-like MQA
-# shape: d 256, 16 query heads on one kv head, window, padded tails
+# shape: d 256, 16 query heads on one kv head, window, padded tails; then
+# the edges of the bfloat16 tensor-core kernel: each head-dim tier (16-64,
+# 65-128, 129-256 padded with zeros), dv above and below dh, sq and skv off
+# its 128-row and 64-key tiles, a q suffix, and the serve call's window
 _FLASH_CARD = ([(c, d) for c in FLASH_CASES for d in ("float32", "bfloat16")]
                + [((2, 333, 333, 1, 16, 256, 256, 128, None), "bfloat16"),
-                  ((1, 96, 1000, 1, 16, 256, 256, None, 20.0), "float32")])
+                  ((1, 96, 1000, 1, 16, 256, 256, None, 20.0), "float32")]
+               + [(c, "bfloat16") for c in (
+                   (1, 200, 200, 2, 2, 16, 16, None, None),
+                   (1, 130, 130, 1, 2, 48, 80, 50, None),
+                   (2, 257, 257, 2, 4, 256, 256, None, None),
+                   (1, 128, 1000, 2, 2, 128, 64, None, None),
+                   (1, 333, 1000, 1, 16, 256, 256, 300, None),
+                   (1, 257, 257, 1, 16, 256, 256, 100, None),
+                   (1, 200, 200, 1, 16, 256, 256, None, 30.0),
+                   (1, 4096, 4096, 1, 16, 256, 256, 2048, None))])
 
 
 @pytest.mark.cuda
@@ -749,9 +761,44 @@ def test_flash_attention_kernel_matches_plain(case, dtype, cuda):
                                **_ktol(dtype))
     kp2 = kp.clone()
     kp2[kp.shape[0] // 2:] = 2**30                 # empty ring slots
+    got2 = fa_ops.flash_attention(q, k, v, qp, kp2, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 2 and got2.dtype == q.dtype
     torch.testing.assert_close(
-        fa_ops.flash_attention(q, k, v, qp, kp2, **kw).float(),
-        fa_ref.attention(q, k, v, qp, kp2, **kw).float(), **_ktol(dtype))
+        got2.float(), fa_ref.attention(q, k, v, qp, kp2, **kw).float(),
+        **_ktol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_without_keys_gives_zeros(dtype, cuda):
+    """skv = 0: every row sees no key and gives 0, on either entry (TMA
+    cannot map an empty tensor, so the wrapper answers without a launch)."""
+    q = torch.ones((1, 5, 1, 2, 32), dtype=dtype, device=cuda)
+    k = torch.ones((1, 0, 1, 32), dtype=dtype, device=cuda)
+    got = fa_ops.flash_attention(q, k, k, torch.arange(5, device=cuda),
+                                 torch.arange(0, device=cuda))
+    want = fa_ref.attention(q, k, k, torch.arange(5, device=cuda),
+                            torch.arange(0, device=cuda))
+    assert got.dtype == dtype and float(got.abs().max()) == 0.0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dv", [(24, 24), (64, 40), (272, 256), (256, 272)],
+                         ids=str)
+def test_flash_attention_bf16_refuses_head_dims_and_launches_nothing(
+        dh, dv, cuda):
+    """The tensor-core kernel takes dh and dv multiples of 16 up to 256;
+    anything else raises before a launch, with no plain fallback."""
+    q = torch.zeros((1, 8, 1, 2, dh), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 8, 1, dh), dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros((1, 8, 1, dv), dtype=torch.bfloat16, device=cuda)
+    pos = torch.arange(8, device=cuda)
+    before = fa_ops.launches
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa_ops.flash_attention(q, k, v, pos, pos)
+    assert fa_ops.launches == before
 
 
 @pytest.mark.cuda
