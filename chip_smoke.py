@@ -57,7 +57,9 @@ Phases, each printed as one JSON line:
            tree's memory, head included), prefill ms,
            decode ms a step, tokens a second, peak device memory, and from
            a profiled repeat the device's busy time, idle share and time by
-           kernel name.  Launch counters set to 0 just before the prefill
+           kernel name (for Mamba2 ssd_scan's own, its three kernels by
+           name, and its share of busy; each must show whenever ssd_scan
+           launched).  Launch counters set to 0 just before the prefill
            and read just after it and after the decode.  Checks: one launch
            a layer per prefill (RecurrentGemma: rglru_scan 26, flash_attention
            12; Mamba2: ssd_scan 24) and none in decode; finite logits; every
@@ -100,7 +102,9 @@ Phases, each printed as one JSON line:
            (whether the cast would pay).  Each flash_attention case names
            the entry that ran (bfloat16: wgmma on the tensor cores;
            float32: the float32 pipes), its TFLOP/s and its share of the
-           bound.
+           bound; so does each ssd_scan case (bfloat16: three launches on
+           the tensor cores, each float32 operand split into two bf16
+           products; float32: the float32 pipes).
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure raises: the exit code
@@ -358,6 +362,9 @@ SSD_SAME_DTYPE_TOL = {torch.float32: dict(atol=5e-5, rtol=1e-4),
 # which of the kernel's two entries a dtype runs
 FLASH_ENTRY = {torch.bfloat16: "wgmma bf16 (tensor cores, TMA ring)",
                torch.float32: "float32 pipes"}
+SSD_ENTRY = {torch.bfloat16: "wgmma bf16, hi/lo split (tensor cores; "
+                             "chunk state, state pass, chunk scan)",
+             torch.float32: "float32 pipes (one block per (b, h))"}
 # the bfloat16 kernel's edges beyond tests/test_kernels.py's cases: each
 # head-dim tier (16-64, 65-128, 129-256, zero-padded), dv above and below
 # dh, sq and skv off the 128-row and 64-key tiles, a q suffix, 16 heads at d
@@ -462,11 +469,14 @@ def check_ssd(dev, x, dt, A, B, C, chunk, initial_state=None):
     nbytes = (2 * x.numel() + B.numel() + C.numel()) * esize \
         + 4 * (dt.numel() + A.numel() + st.numel()) \
         + (4 * initial_state.numel() if initial_state is not None else 0)
-    bound_ms, bound_by = bound(nbytes, 2 * fma * b * h, x.dtype)
+    flops = 2 * fma * b * h
+    bound_ms, bound_by = bound(nbytes, flops, x.dtype)
     return {"shape": f"x {'x'.join(map(str, x.shape))} B/C "
                      f"{'x'.join(map(str, B.shape))} {_dname(x.dtype)} chunk "
                      f"{chunk}" + (" initial state" if initial_state
                                    is not None else ""),
+            "entry": SSD_ENTRY[x.dtype],
+            "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
             "max_abs_err": err, "max_abs_err_state": err_state,
             "tolerance": SSD_TOL[x.dtype],
             "max_abs_err_vs_same_dtype_plain": err_same,
@@ -592,6 +602,22 @@ def ps_apply_seconds(device_s: dict, launched: int) -> dict:
                              f"kernel ({kernel} s) or its sort ({group} s) "
                              f"matched no kernel by name")
     return {"kernel": kernel, "group": group}
+
+
+# ssd_scan's kernels by name: the bfloat16 entry's three launches
+SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+               "ssd_chunk_scan_kernel")
+
+
+def ssd_scan_seconds(device_s: dict, launched: int) -> dict:
+    """ssd_scan's device seconds, by each of its bfloat16 entry's kernels
+    and in all.  Fails if it launched and a kernel matched no name."""
+    out = {k: sum(v for name, v in device_s.items() if name.startswith(k))
+           for k in SSD_KERNELS}
+    if launched and not all(out.values()):
+        raise AssertionError(f"ssd_scan launched {launched} times, but a "
+                             f"kernel matched no name: {out}")
+    return {**out, "total": sum(out.values())}
 
 
 def device_seconds(prof) -> dict:
@@ -1126,6 +1152,8 @@ def run_serve_phase(dev, seed):
         del caches
         device_s = device_seconds(prof)
         busy_s = sum(device_s.values())
+        ssd_s = (ssd_scan_seconds(device_s, after_prefill["ssd_scan"])
+                 if after_prefill["ssd_scan"] else None)
 
         # the first decode step against a full forward over prompt + token
         ctx = ShardCtx()
@@ -1170,7 +1198,10 @@ def run_serve_phase(dev, seed):
                          "wall_s": prof_wall_s, "device_busy_s": busy_s,
                          "device_idle_share": 1.0 - busy_s / prof_wall_s,
                          "device_s_by_name": dict(sorted(
-                             device_s.items(), key=lambda kv: -kv[1])[:20])},
+                             device_s.items(), key=lambda kv: -kv[1])[:20]),
+                         **({"ssd_scan_device_s": ssd_s,
+                             "ssd_scan_share_of_busy": ssd_s["total"]
+                             / busy_s} if ssd_s else {})},
             "parity_max_rel_err": parity, "parity_tolerance": PARITY_TOL,
             "logits_max_abs": scale, "finite": finite,
             "tokens_in_vocab": in_vocab,

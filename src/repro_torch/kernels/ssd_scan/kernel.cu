@@ -2,7 +2,9 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py:79
-// (ssd_scan_pallas, body _kernel at :33).
+// (ssd_scan_pallas, body _kernel at :33).  That kernel walks the chunks of a
+// (batch, head) in order on one core and carries the p x n state across its
+// sequential chunk axis in VMEM.
 //
 // Contract.  x (b, l, h, p), B and C (b, l, g, n) in one dtype (float32 or
 // bfloat16; h a multiple of g, head hi reads group hi / (h / g)); dt (b, l, h)
@@ -13,57 +15,112 @@
 //   y[t]  = sum_{s <= t} (C[t] . B[s]) exp(a[t] - a[s]) xdt[s]      (intra)
 //         + exp(a[t]) (C[t] . state)                               (carried)
 //   state = state * exp(a[cs-1]) + sum_s exp(a[cs-1] - a[s]) xdt[s] B[s]^T
-// y (b, l, h, p) in x's dtype; the final state (b, h, p, n) float32.  Every
-// product and sum is float32, as in the TPU kernel.
+// y (b, l, h, p) in x's dtype; the final state (b, h, p, n) float32.  The
+// decays, the cumsum, the recurrence and the carried state are float32, as
+// in the TPU kernel, and every result is held to the plain version in
+// float32 on the same values.
 //
-// What bounds it on this card: operations, on the float32 pipes.  Per chunk
-// and head the intra-chunk term costs cs(cs+1)/2 (n + p) multiply-adds and
-// the carried term and the state update 2 cs p n; Mamba2-130M's prefill
-// (4 x 4,096 steps, 24 heads, p 64, n 128, cs 256) does 3.2e10 flops on ~70
-// MB of bf16 inputs and outputs.  The recurrence over chunks is sequential,
-// so the parallelism is b * h blocks (96 there, on 132 SMs); tensor cores
-// and a split of the intra-chunk work over more blocks are ROADMAP Queue 2b.
+// What bounds it on this card.  Mamba2-130M's prefill call (4 x 4,096 steps,
+// 24 heads, p 64, n 128, cs 256) moves ~114 MB (x and y 50 MB each), 0.034
+// ms at 3.35 TB/s; its products, counting the tiles on or below the diagonal
+// and the second product of each split below, are ~5.8e10 flops, 0.059 ms on
+// the bf16 tensor cores.  On the float32 pipes the same work takes ~0.5 ms
+// at best, so the bfloat16 entry puts every product on the tensor cores and
+// the chunk axis, sequential on the TPU, goes parallel.
 //
-// Design.  One block of 8 warps per (batch, head) loops over the chunks in
-// order and keeps the p x n float32 state in shared memory (32 KB at 64 x 128,
-// padded to n + 1 columns so that lanes reading one column of it hit
-// distinct banks).  A chunk's xdt (cs x p) and its cumulative decay stay in
-// shared memory while the block computes the output a tile of 32 rows at a
-// time: the cs x cs score block is 256 KB at cs 256, more than a block's
-// shared memory, so each 32 x 32 tile of it is formed from a C tile and a B
-// tile (only the tiles on or below the diagonal), decay-masked, and used at
-// once.  Each thread accumulates 4 rows x 2 columns of y in registers, then
-// the carried-state term; when every row tile is written, the state is
-// decayed and the chunk's mass added, each thread owning 32 of its entries.
-// B and C are read at group granularity and never broadcast in memory.
+// Two entries, chosen by dtype; neither falls back to the other.
+//
+// bfloat16: three launches, Mamba-2's own decomposition (§6 of the paper),
+// parallel over chunks.
+//  1. ssd_chunk_state_kernel, two warpgroups per (chunk, head, batch): the
+//     chunk's cumsum a (stored, (b, h, nc * cs) float32, for the two
+//     launches after it) and its own state mass S_c = sum_s w_s x_s^T B_s
+//     with w_s = exp(a_last - a_s) dt_s, a (p x cs)(cs x n) product (each
+//     warpgroup half of n), into a (b, nc, h, p, n) float32 scratch, staged
+//     in shared memory so that whole rows are stored.  B tiles come by
+//     cp.async, x one tile ahead in registers.
+//  2. ssd_state_pass_kernel, a thread per four entries of a (batch, head)'s
+//     state: the only sequential part, carry = S_c + exp(a_last_c) carry
+//     over the chunks in float32, eight chunks' loads in flight; it writes
+//     the state entering each chunk, already split into bf16 hi and lo
+//     planes ((b, nc, h, 2, p, n)), and the final state.
+//  3. ssd_chunk_scan_kernel, two warpgroups per (128-row tile, chunk, head,
+//     batch), 64 rows each: the carried term exp(a_t) (C_t . S_in) first,
+//     then for each 64-column tile on or before the warpgroup's diagonal
+//     P = (C B^T) exp(a_t - a_s) dt_s, masked to s <= t in registers where
+//     the tile crosses the diagonal, and y += P x.  The C B^T accumulator is
+//     rearranged in registers into the A operand of P x, so P never goes
+//     through shared memory.  C, the state's planes and the first x tile
+//     come in one cp.async group; then B and x tiles stream through a
+//     two-stage ring, whose B half reuses the state's shared memory once
+//     the carried term is done (83 KB a block, two blocks an SM).  y is
+//     staged in the ring's memory at the end and stored in whole rows.
+// Products are wgmma m64n64k16 bf16 with float32 accumulation, operands in
+// shared memory with the 128-byte swizzle (cp.async writes it), P from
+// registers; x and the B and x tiles of S_c's product lie row-major over
+// the reduction and go in through the transpose bits.  An operand that is
+// already bf16 (x, B, C) goes in as it is; the float32 factor of each
+// product is folded into the other operand (dt into P, w into x for S_c),
+// which is split into hi = bf16(v) and lo = bf16(v - hi) and multiplied
+// twice, so each product keeps ~16 of float32's 24 mantissa bits: one
+// rounding to bf16 would break the float32 gate (atol 1e-3, rtol 4e-3 on
+// y; 1e-4 on the state) by 10-60x near zero, and TF32's 10 bits by as
+// much.  C B^T needs one product: bf16 times bf16 is exact in float32.
+// Tiles are zero-padded in shared memory to p 64 and n 128; rows past the
+// chunk or the sequence read as zeros and are never stored.  At the serve
+// call the three grids are 1,536, 768 and 3,072 blocks on 132 SMs.  What
+// holds it back now is memory more than the tensor cores: each chunk's
+// state goes out in float32 and back in as the split planes, and each
+// 128-row block brings its state, C and column tiles into shared memory
+// through a few dependent round trips.
+//
+// float32 (ssd_scan_kernel): the float32 pipes, since TF32 tensor cores would
+// not hold float32's tolerance.  One block of 8 warps per (batch, head)
+// loops over the chunks in order and keeps the p x n state in shared memory
+// (32 KB at 64 x 128, padded to n + 1 columns so that lanes reading one
+// column of it hit distinct banks).  A chunk's xdt (cs x p) and its
+// cumulative decay stay in shared memory while the block computes the
+// output a tile of 32 rows at a time: each 32 x 32 tile of the score block
+// is formed from a C tile and a B tile (only the tiles on or below the
+// diagonal), decay-masked, and used at once.  Each thread accumulates 4 rows
+// x 2 columns of y in registers, then the carried-state term; when every
+// row tile is written, the state is decayed and the chunk's mass added,
+// each thread owning 32 of its entries.
+//
+// Both entries read B and C at group granularity and never broadcast them
+// in memory.
 #include <cstdint>
+#include <cstring>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxP = 64;              // head dim
+constexpr int kMaxN = 128;             // state dim
+constexpr int kMaxCS = 256;            // chunk
+constexpr int kMaxDevices = 64;
+
+// Batch and time strides (elements) of x and of B and C, which Mamba2 hands
+// over as column slices of one projection; within a step x's heads and B's
+// and C's groups are packed (p and n elements apart).  y is contiguous.
+struct Strides {
+  int64_t xb, xt, bcb, bct;
+};
+
+// ---------------------------------------------------------------------------
+// float32 entry
+// ---------------------------------------------------------------------------
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;              // rows (t) and columns (s) of a tile
-constexpr int kMaxP = 64;              // head dim
-constexpr int kMaxN = 128;             // state dim
 constexpr int kYRows = kTile / kWarps;           // 4 rows of y per thread
 constexpr int kYCols = kMaxP / 32;               // 2 columns of y per thread
 constexpr int kSRows = kMaxP / kWarps;           // 8 state rows per thread
 constexpr int kSCols = kMaxN / 32;               // 4 state columns per thread
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 size_t smem_bytes(int p, int n, int cs) {
   return sizeof(float) *
@@ -78,9 +135,8 @@ size_t smem_bytes(int p, int n, int cs) {
 
 // Rows [s0, s0 + kTile) of a (b, l, g, n) tensor's chunk into tile (stride
 // ldt), zero where the row lies past the chunk or the sequence.
-template <typename T>
 __device__ __forceinline__ void load_tile(float* tile, int ldt,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int64_t row0, int s0, int cs,
                                           int64_t l, int64_t row_stride,
                                           int n) {
@@ -88,17 +144,16 @@ __device__ __forceinline__ void load_tile(float* tile, int ldt,
     const int r = idx / n, c = idx % n;
     const int s = s0 + r;
     const bool ok = s < cs && row0 + s < l;
-    tile[r * ldt + c] = ok ? to_f(src[(row0 + s) * row_stride + c]) : 0.0f;
+    tile[r * ldt + c] = ok ? src[(row0 + s) * row_stride + c] : 0.0f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ B,
-                const T* __restrict__ C, const float* __restrict__ init,
-                T* __restrict__ y, float* __restrict__ fin, int64_t l,
-                int64_t h, int64_t g, int p, int n, int cs) {
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const float* __restrict__ B,
+                const float* __restrict__ C, const float* __restrict__ init,
+                float* __restrict__ y, float* __restrict__ fin, int64_t l,
+                int64_t h, int64_t g, int p, int n, int cs, Strides sd) {
   extern __shared__ float4 smem4[];
   float* st = reinterpret_cast<float*>(smem4);   // p x (n + 1)
   float* xd = st + p * (n + 1);                  // cs x p
@@ -113,11 +168,11 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int64_t hi = blockIdx.x, bi = blockIdx.y;
   const int64_t gi = hi / (h / g);
   const float a_h = A[hi];
-  const int64_t x_stride = h * p, bc_stride = g * n;
-  const T* xb = x + bi * l * x_stride + hi * p;
-  T* yb = y + bi * l * x_stride + hi * p;
-  const T* Bb = B + bi * l * bc_stride + gi * n;
-  const T* Cb = C + bi * l * bc_stride + gi * n;
+  const int64_t y_stride = h * p;
+  const float* xb = x + bi * sd.xb + hi * p;
+  float* yb = y + bi * l * y_stride + hi * p;
+  const float* Bb = B + bi * sd.bcb + gi * n;
+  const float* Cb = C + bi * sd.bcb + gi * n;
   const float* dtb = dt + bi * l * h + hi;
   const int64_t s_base = (bi * h + hi) * p * n;
 
@@ -153,13 +208,13 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int idx = tid; idx < cs * p; idx += kThreads) {
       const int t = idx / p, c = idx % p;
       const bool ok = t_base + t < l;
-      xd[idx] = ok ? to_f(xb[(t_base + t) * x_stride + c]) * dts[t] : 0.0f;
+      xd[idx] = ok ? xb[(t_base + t) * sd.xt + c] * dts[t] : 0.0f;
     }
     __syncthreads();
 
     // ---- y, one tile of kTile rows at a time ----
     for (int t0 = 0; t0 < cs; t0 += kTile) {
-      load_tile(Ct, n, Cb, t_base, t0, cs, l, bc_stride, n);
+      load_tile(Ct, n, Cb, t_base, t0, cs, l, sd.bct, n);
       float acc[kYRows][kYCols];
 #pragma unroll
       for (int i = 0; i < kYRows; ++i)
@@ -168,7 +223,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
       for (int s0 = 0; s0 <= t0; s0 += kTile) {
         __syncthreads();                 // Ct loaded; Bt, sc free
-        load_tile(Bt, n + 1, Bb, t_base, s0, cs, l, bc_stride, n);
+        load_tile(Bt, n + 1, Bb, t_base, s0, cs, l, sd.bct, n);
         __syncthreads();
         // score tile: lane = column s, warp + 8i = row t
         {
@@ -237,8 +292,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           for (int j = 0; j < kYCols; ++j) {
             const int c = lane + 32 * j;
             if (c < p)
-              yb[(t_base + t) * x_stride + c] =
-                  from_f<T>(acc[i][j] + cst[i][j] * decay);
+              yb[(t_base + t) * y_stride + c] = acc[i][j] + cst[i][j] * decay;
           }
         }
       }
@@ -254,7 +308,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int j = 0; j < kSCols; ++j) add[i][j] = 0.0f;
     for (int s0 = 0; s0 < cs; s0 += kTile) {
       __syncthreads();
-      load_tile(Bt, n + 1, Bb, t_base, s0, cs, l, bc_stride, n);
+      load_tile(Bt, n + 1, Bb, t_base, s0, cs, l, sd.bct, n);
       __syncthreads();
       const int s_end = min(kTile, cs - s0);
       for (int s = 0; s < s_end; ++s) {
@@ -296,48 +350,800 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
-int launch(int device, const void* x, const void* dt, const void* A,
-           const void* B, const void* C, const void* init, void* y, void* fin,
-           int64_t b, int64_t l, int64_t h, int64_t g, int64_t p, int64_t n,
-           int64_t cs, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(static_cast<int>(p), static_cast<int>(n),
-                                 static_cast<int>(cs));
-  err = cudaFuncSetAttribute(ssd_scan_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(h), static_cast<unsigned>(b));
-  ssd_scan_kernel<T><<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<const float*>(init),
-      static_cast<T*>(y), static_cast<float*>(fin), l, h, g,
-      static_cast<int>(p), static_cast<int>(n), static_cast<int>(cs));
-  return static_cast<int>(cudaGetLastError());
+// ---------------------------------------------------------------------------
+// bfloat16 entry: tensor-core helpers
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 64;              // rows of a column tile
+constexpr int kPassThreads = 256;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ uint32_t bits(bf16 a, bf16 b) {
+  __nv_bfloat162 v(a, b);
+  uint32_t u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// (a, b) = hi + lo with hi = bf16(v) and lo = bf16(v - hi), packed in pairs
+// (the first value in the low half, as an mma fragment holds two columns)
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const bf16 ha = __float2bfloat16_rn(a), hb = __float2bfloat16_rn(b);
+  hi = bits(ha, hb);
+  lo = bits(__float2bfloat16_rn(a - __bfloat162float(ha)),
+            __float2bfloat16_rn(b - __bfloat162float(hb)));
+}
+
+__device__ __forceinline__ void split1(float v, bf16& hi, bf16& lo) {
+  hi = __float2bfloat16_rn(v);
+  lo = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// wgmma's operand tiles lie in shared memory with the 128-byte swizzle:
+// boxes of 64 bf16 columns, each box R rows of 128 bytes, the 16-byte chunk
+// c of row r at chunk c ^ (r % 8); every tile 1024-aligned.
+//
+// R rows of up to NB boxes of bf16 from src (row stride ``stride``, first
+// cols columns) into the swizzled tile at dst, zeros past rows or cols; by
+// cp.async when vec (cols a multiple of 8, every row 16-byte aligned), else
+// element by element
+template <int R, int NB>
+__device__ __forceinline__ void load_swizzled(char* dst,
+                                              const bf16* __restrict__ src,
+                                              int64_t stride, int rows,
+                                              int cols, bool vec) {
+  for (int idx = threadIdx.x; idx < R * NB * 8; idx += blockDim.x) {
+    const int r = idx / (NB * 8), c16 = idx % (NB * 8);
+    const int c8 = 8 * c16;                        // first column of the chunk
+    char* d = dst + (c16 / 8) * R * 128 + r * 128 +
+              (((c16 % 8) ^ (r % 8)) << 4);
+    if (r < rows && c8 < cols) {
+      const bf16* s = src + r * stride + c8;
+      if (vec) {
+        cp_async16(d, s);
+      } else {
+        bf16 e[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          e[k] = c8 + k < cols ? s[k] : __float2bfloat16_rn(0.0f);
+        memcpy(d, e, sizeof(e));
+      }
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+// generic-proxy writes (cp.async, st.shared) made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; byte offsets: ``lbo``
+// between boxes along M or N (MN-major operands only), ``sbo`` between
+// groups of 8 rows
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+__device__ __forceinline__ void reg_fence(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define ACC32(d)                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define REGS32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64 x 64 f32) (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared,
+// K-major); ``accumulate`` 0 overwrites d
+__device__ __forceinline__ void wg_mma_ss(float (&d)[32], uint64_t a,
+                                          uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16, registers) . B (16 x 64, shared,
+// MN-major: the transpose bit reads a row-major x tile as it lies)
+__device__ __forceinline__ void wg_mma_rs(float (&d)[32],
+                                          const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64 f32) += A (64 x 16, shared, MN-major) . B (16 x 64, shared,
+// MN-major): the transpose bits read both as they lie, row-major over K
+__device__ __forceinline__ void wg_mma_tt(float (&d)[32], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+constexpr int kStateWarps = 8;
+constexpr int kStateThreads = kStateWarps * 32;
+
+// The chunk's dt (zero past valid) and the inclusive cumsum a of dt * a_h,
+// for every t < kMaxCS (constant past cs), kStateThreads at a time.
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dtb,
+                                             int64_t h, int valid, float a_h,
+                                             float* s_dt, float* s_a,
+                                             float* s_carry) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float run = 0.0f;
+  for (int base = 0; base < kMaxCS; base += kStateThreads) {
+    const int t = base + tid;
+    const float d = t < valid ? dtb[t * h] : 0.0f;
+    float v = d * a_h;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane == 31) s_carry[warp] = v;
+    __syncthreads();
+    float before = run, total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kStateWarps; ++w) {
+      if (w < warp) before += s_carry[w];
+      total += s_carry[w];
+    }
+    s_dt[t] = d;
+    s_a[t] = v + before;
+    run += total;
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 1. the chunk's cumsum and its own state mass
+// ---------------------------------------------------------------------------
+
+constexpr int kXPieces = kRows * (kMaxP / 8) / kStateThreads;  // 8 bf16 each
+
+// a thread's pieces of an x tile (kRows rows, p columns) into registers,
+// zeros past rows or p
+__device__ __forceinline__ void load_x(uint4 (&raw)[kXPieces],
+                                       const bf16* __restrict__ src,
+                                       int64_t stride, int rows, int p,
+                                       bool vec) {
+#pragma unroll
+  for (int i = 0; i < kXPieces; ++i) {
+    const int idx = threadIdx.x + i * kStateThreads;
+    const int r = idx / (kMaxP / 8), c8 = (idx % (kMaxP / 8)) * 8;
+    raw[i] = make_uint4(0, 0, 0, 0);
+    if (r < rows && c8 < p) {
+      const bf16* s = src + r * stride + c8;
+      if (vec) {
+        raw[i] = *reinterpret_cast<const uint4*>(s);
+      } else {
+        bf16 e[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          e[k] = c8 + k < p ? s[k] : __float2bfloat16_rn(0.0f);
+        memcpy(&raw[i], e, sizeof(e));
+      }
+    }
+  }
+}
+
+// Shared memory, in bytes from a 1024-aligned base.
+struct StateSmem {
+  static constexpr uint32_t kBTile = 2 * kRows * 128;   // B: 2 boxes of n
+  static constexpr uint32_t kXTile = kRows * 128;       // w x: 1 box of p
+  static constexpr uint32_t kB = 0;                     // B ring
+  static constexpr uint32_t kXh = kB + 2 * kBTile;      // w x, hi and lo
+  static constexpr uint32_t kXl = kXh + kXTile;
+  static constexpr uint32_t kDt = kXl + kXTile;
+  static constexpr uint32_t kA = kDt + 4 * kMaxCS;
+  static constexpr uint32_t kW = kA + 4 * kMaxCS;
+  static constexpr uint32_t kCarry = kW + 4 * kMaxCS;
+  static constexpr uint32_t kBytes = kCarry + 4 * kStateWarps;
+  // S_c staged over the ring and w x (free after the loop)
+  static constexpr int kLdS = kMaxN + 4;
+};
+static_assert(kMaxP * StateSmem::kLdS * 4 <= StateSmem::kDt,
+              "S_c is staged below dt");
+
+// three blocks an SM: the register allocation left to itself fits two
+__global__ void __launch_bounds__(kStateThreads, 3)
+ssd_chunk_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                       const float* __restrict__ A, const bf16* __restrict__ B,
+                       float* __restrict__ acum, float* __restrict__ states,
+                       int64_t l, int64_t h, int64_t g, int p, int n, int cs,
+                       Strides sd, int vec) {
+  extern __shared__ __align__(1024) char smem_raw[];
+  using S = StateSmem;
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023) & ~1023u;   // the swizzle's
+  char* smem = smem_raw + (base - raw_addr);           // alignment
+  float* s_dt = reinterpret_cast<float*>(smem + S::kDt);
+  float* s_a = reinterpret_cast<float*>(smem + S::kA);
+  float* s_w = reinterpret_cast<float*>(smem + S::kW);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4,
+            lane = tid % 32;
+  const int64_t c = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
+  const int64_t nc = gridDim.x, gi = hi / (h / g);
+  const int64_t t_base = c * cs;
+  const int valid = static_cast<int>(l - t_base < cs ? l - t_base : cs);
+  const int64_t x_stride = sd.xt, bc_stride = sd.bct;
+  const bf16* xb = x + bi * sd.xb + t_base * x_stride + hi * p;
+  const bf16* Bb = B + bi * sd.bcb + t_base * bc_stride + gi * n;
+
+  load_swizzled<kRows, 2>(smem + S::kB, Bb, bc_stride, min(kRows, valid), n,
+                          vec);
+  cp_async_commit();
+  uint4 raw[kXPieces];                 // x, one tile ahead
+  load_x(raw, xb, x_stride, min(kRows, valid), p, vec);
+  chunk_cumsum(dt + (bi * l + t_base) * h + hi, h, valid, A[hi], s_dt, s_a,
+               reinterpret_cast<float*>(smem + S::kCarry));
+  float* acum_c = acum + (bi * h + hi) * nc * cs + c * cs;
+  for (int t = tid; t < cs; t += kStateThreads) acum_c[t] = s_a[t];
+  const float a_last = s_a[cs - 1];
+  for (int t = tid; t < kMaxCS; t += kStateThreads)
+    s_w[t] = expf(a_last - s_a[t]) * s_dt[t];
+  __syncthreads();
+
+  // S_c (p x n) = (w x)^T B: warpgroup wg takes the columns n0..n0+63; both
+  // operands lie row-major over s (K), so both go in transposed
+  const int n0 = 64 * wg;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+  const int tiles = (valid + kRows - 1) / kRows;
+  for (int j = 0; j < tiles; ++j) {
+    const int buf = j % 2, s0 = j * kRows;
+    // w_s x_s, split into hi and lo, 8 columns (one 16-byte chunk) a piece;
+    // zero past valid, where w is 0
+#pragma unroll
+    for (int i = 0; i < kXPieces; ++i) {
+      const int idx = tid + i * kStateThreads;
+      const int r = idx / (kMaxP / 8), c16 = idx % (kMaxP / 8);
+      const float w = s_w[s0 + r];
+      bf16 e[8], eh[8], el[8];
+      memcpy(e, &raw[i], sizeof(e));
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        split1(w * __bfloat162float(e[k]), eh[k], el[k]);
+      uint4 vh, vl;
+      memcpy(&vh, eh, sizeof(vh));
+      memcpy(&vl, el, sizeof(vl));
+      const uint32_t at = r * 128 + ((c16 ^ (r % 8)) << 4);
+      *reinterpret_cast<uint4*>(smem + S::kXh + at) = vh;
+      *reinterpret_cast<uint4*>(smem + S::kXl + at) = vl;
+    }
+    if (j + 1 < tiles) {               // the next tile's x and B
+      const int s1 = s0 + kRows;
+      load_x(raw, xb + s1 * x_stride, x_stride, min(kRows, valid - s1), p,
+             vec);
+      load_swizzled<kRows, 2>(smem + S::kB + (buf ^ 1) * S::kBTile,
+                              Bb + s1 * bc_stride, bc_stride,
+                              min(kRows, valid - s1), n, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (n0 < n) {
+      // a k16 step is 16 rows of s, 2,048 bytes into each tile
+      const uint32_t b_half = base + S::kB + buf * S::kBTile + wg * S::kXTile;
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < kRows / 16; ++k) {
+        const uint64_t b = desc(b_half + k * 2048, S::kXTile, 1024);
+        wg_mma_tt(acc, desc(base + S::kXh + k * 2048, S::kXTile, 1024), b);
+        wg_mma_tt(acc, desc(base + S::kXl + k * 2048, S::kXTile, 1024), b);
+      }
+      wg_commit_wait();
+      reg_fence(acc);
+    }
+    __syncthreads();
+  }
+
+  // stage S_c in shared memory (the ring is free), then store whole rows
+  float* out_s = reinterpret_cast<float*>(smem);
+  const int gr = lane / 4, gc = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(
+          &out_s[(16 * warp + gr + 8 * half) * S::kLdS + n0 + 8 * j + gc]) =
+          make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  __syncthreads();
+  float* out = states + ((bi * nc + c) * h + hi) * p * n;
+  if (n % 4 == 0) {
+    for (int idx = tid; idx < p * n / 4; idx += kStateThreads) {
+      const int r = 4 * idx / n, col = 4 * idx % n;
+      reinterpret_cast<float4*>(out)[idx] =
+          *reinterpret_cast<const float4*>(&out_s[r * S::kLdS + col]);
+    }
+  } else {
+    for (int idx = tid; idx < p * n; idx += kStateThreads)
+      out[idx] = out_s[idx / n * S::kLdS + idx % n];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. the state entering each chunk, and the final state
+// ---------------------------------------------------------------------------
+
+constexpr int kPassDepth = 8;          // chunks whose loads are in flight
+
+// four consecutive floats from p (those past cnt read as 0); whole when v4
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, int cnt,
+                                        bool v4) {
+  if (v4) return *reinterpret_cast<const float4*>(p);
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = k < cnt ? p[k] : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// s_in (b, nc, h, 2, p, n) bf16: the state entering each chunk, split into
+// hi and lo planes as the chunk scan's tensor cores take it.  Four entries
+// of the state a thread.
+__global__ void __launch_bounds__(kPassThreads)
+ssd_state_pass_kernel(const float* __restrict__ acum,
+                      const float* __restrict__ init,
+                      const float* __restrict__ states,
+                      bf16* __restrict__ s_in, float* __restrict__ fin,
+                      int64_t nc, int64_t h, int64_t pn, int cs) {
+  const int64_t e = 4 * (blockIdx.x * static_cast<int64_t>(kPassThreads) +
+                         threadIdx.x);
+  if (e >= pn) return;
+  const int cnt = static_cast<int>(pn - e < 4 ? pn - e : 4);
+  const bool v4 = pn % 4 == 0;
+  const int64_t hi = blockIdx.y, bi = blockIdx.z;
+  const float* a_last = acum + (bi * h + hi) * nc * cs + (cs - 1);
+  float4 carry = init != nullptr ? load4(init + (bi * h + hi) * pn + e, cnt, v4)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float* sp = states + (bi * nc * h + hi) * pn + e;
+  bf16* op = s_in + (bi * nc * h + hi) * 2 * pn + e;
+  for (int64_t c0 = 0; c0 < nc; c0 += kPassDepth) {
+    float4 mass[kPassDepth];
+    float decay[kPassDepth];
+#pragma unroll
+    for (int k = 0; k < kPassDepth; ++k) {
+      const int64_t c = c0 + k;
+      mass[k] = c < nc ? load4(sp + c * h * pn, cnt, v4)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      decay[k] = c < nc ? expf(a_last[c * cs]) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kPassDepth; ++k) {
+      const int64_t c = c0 + k;
+      if (c >= nc) break;
+      const float v[4] = {carry.x, carry.y, carry.z, carry.w};
+      bf16 h4[4], l4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split1(v[i], h4[i], l4[i]);
+      bf16* o = op + c * h * 2 * pn;
+      if (v4) {
+        uint2 uh, ul;
+        memcpy(&uh, h4, sizeof(uh));
+        memcpy(&ul, l4, sizeof(ul));
+        *reinterpret_cast<uint2*>(o) = uh;
+        *reinterpret_cast<uint2*>(o + pn) = ul;
+      } else {
+        for (int i = 0; i < cnt; ++i) {
+          o[i] = h4[i];
+          o[pn + i] = l4[i];
+        }
+      }
+      carry = make_float4(mass[k].x + decay[k] * carry.x,
+                          mass[k].y + decay[k] * carry.y,
+                          mass[k].z + decay[k] * carry.z,
+                          mass[k].w + decay[k] * carry.w);
+    }
+  }
+  float* f = fin + (bi * h + hi) * pn + e;
+  if (v4) {
+    *reinterpret_cast<float4*>(f) = carry;
+  } else {
+    const float v[4] = {carry.x, carry.y, carry.z, carry.w};
+    for (int i = 0; i < cnt; ++i) f[i] = v[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. y: the carried term, then the tiles on or before the diagonal, on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kScanGroups = 2;                 // warpgroups: 64 rows of y each
+constexpr int kScanThreads = 128 * kScanGroups;
+constexpr int kScanRows = 64 * kScanGroups;
+
+
+// Shared memory, in bytes from a 1024-aligned base.
+struct ScanSmem {
+  static constexpr uint32_t kC = 0;                          // C: rows t
+  static constexpr uint32_t kCBox = kScanRows * 128;         // 2 boxes of n
+  static constexpr uint32_t kRing = kC + 2 * kCBox;          // B ring, or
+  static constexpr uint32_t kBTile = 2 * kRows * 128;        // S_in's planes
+  static constexpr uint32_t kX = kRing + 2 * kBTile;         // x ring
+  static constexpr uint32_t kXTile = kRows * 128;            // one box of p
+  static constexpr uint32_t kDt = kX + 2 * kXTile;
+  static constexpr uint32_t kA = kDt + 4 * kMaxCS;
+  static constexpr uint32_t kBytes = kA + 4 * kMaxCS;
+};
+static_assert(2 * kRows * 128 * 2 == 2 * ScanSmem::kBTile,
+              "S_in's two planes fill the B ring");
+static_assert(kScanRows * (kMaxP + 8) * 2 <= 2 * ScanSmem::kBTile,
+              "y is staged in the ring");
+
+__global__ void __launch_bounds__(kScanThreads)
+ssd_chunk_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                      const bf16* __restrict__ B, const bf16* __restrict__ C,
+                      const float* __restrict__ acum,
+                      const bf16* __restrict__ s_in, bf16* __restrict__ y,
+                      int64_t l, int64_t h, int64_t g, int p, int n, int cs,
+                      Strides sd, int vec) {
+  extern __shared__ __align__(1024) char smem_raw[];
+  using S = ScanSmem;
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // the swizzle's alignment
+  char* smem = smem_raw + (base - raw);
+  float* s_dt = reinterpret_cast<float*>(smem + S::kDt);
+  float* s_a = reinterpret_cast<float*>(smem + S::kA);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4,
+            lane = tid % 32;
+  const int tiles = (cs + kScanRows - 1) / kScanRows;
+  const int64_t c = blockIdx.x / tiles, hi = blockIdx.y, bi = blockIdx.z;
+  // the longest row tiles of a chunk first
+  const int ti = tiles - 1 - static_cast<int>(blockIdx.x % tiles);
+  const int64_t nc = gridDim.x / tiles, gi = hi / (h / g);
+  const int64_t t_base = c * cs;
+  const int valid = static_cast<int>(l - t_base < cs ? l - t_base : cs);
+  const int t0 = ti * kScanRows;
+  if (t0 >= valid) return;             // rows past the sequence
+  // this warpgroup's 64 rows hold some t < valid; the block's column tiles
+  // run up to its last row's
+  const int w0 = t0 + 64 * wg;         // the warpgroup's first row
+  const bool rows_live = w0 < valid;
+  const int last_tile = (min(t0 + kScanRows, valid) - 1) / kRows;
+  const int64_t x_stride = sd.xt, bc_stride = sd.bct;
+  const bf16* xb = x + bi * sd.xb + t_base * x_stride + hi * p;
+  const bf16* Bb = B + bi * sd.bcb + t_base * bc_stride + gi * n;
+  const bf16* Cb = C + bi * sd.bcb + t_base * bc_stride + gi * n;
+
+  // C rows t0.., the first x tile and the entering state's hi / lo planes
+  // (in the B ring until the carried term is done)
+  load_swizzled<kScanRows, 2>(smem + S::kC, Cb + t0 * bc_stride, bc_stride,
+                              min(kScanRows, valid - t0), n, vec);
+  load_swizzled<kRows, 1>(smem + S::kX, xb, x_stride, min(kRows, valid), p,
+                          vec);
+  const bf16* s_c = s_in + ((bi * nc + c) * h + hi) * 2 * p * n;
+  load_swizzled<kRows, 2>(smem + S::kRing, s_c, n, p, n, vec);
+  load_swizzled<kRows, 2>(smem + S::kRing + S::kBTile, s_c + p * n, n, p, n,
+                          vec);
+  cp_async_commit();
+  const float* a_c = acum + (bi * h + hi) * nc * cs + c * cs;
+  const float* dtb = dt + (bi * l + t_base) * h + hi;
+  for (int t = tid; t < kMaxCS; t += kScanThreads) {
+    s_a[t] = t < cs ? a_c[t] : 0.0f;
+    s_dt[t] = t < valid ? dtb[t * h] : 0.0f;
+  }
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();
+
+  const int gr = lane / 4, gc = 2 * (lane % 4);
+  const int row_a = 64 * wg + 16 * warp + gr, row_b = row_a + 8;  // this
+  // thread's rows of the block; C's descriptors start at the warpgroup's
+  const uint32_t c_wg = base + S::kC + wg * 64 * 128;
+
+  // carried term: y = exp(a_t) (C_t . S_in), S_in's planes K-major [p][n]
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  if (rows_live) {
+    wg_fence();
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane)
+#pragma unroll
+      for (int kk = 0; kk < kMaxN / 16; ++kk) {
+        const uint32_t off = (kk / 4) * S::kCBox + (kk % 4) * 32;
+        const uint32_t soff = plane * S::kBTile + (kk / 4) * kRows * 128 +
+                              (kk % 4) * 32;
+        wg_mma_ss(acc, desc(c_wg + off, 16, 1024),
+                  desc(base + S::kRing + soff, 16, 1024), plane + kk > 0);
+      }
+    wg_commit_wait();
+    reg_fence(acc);
+    const float da = expf(s_a[t0 + row_a]), db = expf(s_a[t0 + row_b]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[4 * j] *= da;
+      acc[4 * j + 1] *= da;
+      acc[4 * j + 2] *= db;
+      acc[4 * j + 3] *= db;
+    }
+  }
+  __syncthreads();                     // the state's planes become the ring
+
+  // intra-chunk term over the column tiles on or before the diagonal
+  load_swizzled<kRows, 2>(smem + S::kRing, Bb, bc_stride, min(kRows, valid),
+                          n, vec);
+  cp_async_commit();
+  const float a_ta = s_a[t0 + row_a], a_tb = s_a[t0 + row_b];
+  for (int j = 0; j <= last_tile; ++j) {
+    const int buf = j % 2, s0 = j * kRows;
+    if (j < last_tile) {               // prefetch the next tile
+      const int s1 = s0 + kRows;
+      load_swizzled<kRows, 2>(smem + S::kRing + (buf ^ 1) * S::kBTile,
+                              Bb + s1 * bc_stride, bc_stride,
+                              min(kRows, valid - s1), n, vec);
+      load_swizzled<kRows, 1>(smem + S::kX + (buf ^ 1) * S::kXTile,
+                              xb + s1 * x_stride, x_stride,
+                              min(kRows, valid - s1), p, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    // a warpgroup skips a tile wholly above its diagonal, and dead rows
+    if (rows_live && s0 <= w0 + 63) {
+      // C B^T: rows t (the warpgroup's 64), columns s (64), one product
+      const uint32_t b_tile = base + S::kRing + buf * S::kBTile;
+      float cb[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kMaxN / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wg_mma_ss(cb, desc(c_wg + (kk / 4) * S::kCBox + off, 16, 1024),
+                  desc(b_tile + (kk / 4) * kRows * 128 + off, 16, 1024),
+                  kk > 0);
+      }
+      wg_commit_wait();
+      reg_fence(cb);
+      // P = C B^T exp(a_t - a_s) dt_s for s <= t, in registers, split into
+      // hi and lo: the accumulator's 16 x 16 blocks are the A fragments of
+      // the k16 steps of y += P x
+      const bool below = s0 + kRows - 1 <= w0;   // no mask needed
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float pv[2][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int q = 2 * k + half, s = s0 + 8 * q + gc;  // columns s, s+1
+          const float2 as = *reinterpret_cast<const float2*>(&s_a[s]);
+          const float2 ds = *reinterpret_cast<const float2*>(&s_dt[s]);
+          // __expf is within 2 + 1.2 |x| ulp, under the split's 2^-17
+          // wherever exp(x) > e^-20; where it is smaller the term is lost
+          // in the sum's rounding either way
+          pv[half][0] = cb[4 * q] * __expf(a_ta - as.x) * ds.x;
+          pv[half][1] = cb[4 * q + 1] * __expf(a_ta - as.y) * ds.y;
+          pv[half][2] = cb[4 * q + 2] * __expf(a_tb - as.x) * ds.x;
+          pv[half][3] = cb[4 * q + 3] * __expf(a_tb - as.y) * ds.y;
+          if (!below) {
+            const int ta = t0 + row_a, tb = t0 + row_b;
+            if (s > ta) pv[half][0] = 0.0f;
+            if (s + 1 > ta) pv[half][1] = 0.0f;
+            if (s > tb) pv[half][2] = 0.0f;
+            if (s + 1 > tb) pv[half][3] = 0.0f;
+          }
+        }
+        split2(pv[0][0], pv[0][1], ph[k][0], pl[k][0]);
+        split2(pv[0][2], pv[0][3], ph[k][1], pl[k][1]);
+        split2(pv[1][0], pv[1][1], ph[k][2], pl[k][2]);
+        split2(pv[1][2], pv[1][3], ph[k][3], pl[k][3]);
+      }
+      // y += P x: x MN-major [s][p], a k16 step is 16 rows, 2,048 bytes
+      const uint32_t x_tile = base + S::kX + buf * S::kXTile;
+      reg_fence(acc);
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        wg_mma_rs(acc, ph[k], desc(x_tile + k * 2048, S::kXTile, 1024));
+        wg_mma_rs(acc, pl[k], desc(x_tile + k * 2048, S::kXTile, 1024));
+      }
+      wg_commit_wait();
+      reg_fence(acc);
+    }
+    __syncthreads();                   // this stage may be refilled
+  }
+
+  // y rows t0.., in x's dtype, staged in the ring's memory (free after the
+  // loop's last barrier) so that whole rows are stored; rows past the
+  // sequence are never stored
+  constexpr int kLdY = kMaxP + 8;
+  bf16* ys = reinterpret_cast<bf16*>(smem + S::kRing);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<uint32_t*>(&ys[(half ? row_b : row_a) * kLdY + 8 * j +
+                                       gc]) =
+          bits(__float2bfloat16_rn(acc[4 * j + 2 * half]),
+               __float2bfloat16_rn(acc[4 * j + 2 * half + 1]));
+  __syncthreads();
+  const int rows = min(kScanRows, valid - t0);
+  const int64_t y_stride = h * p;
+  bf16* yb = y + (bi * l + t_base + t0) * y_stride + hi * p;
+  if (vec) {
+    for (int idx = tid; idx < rows * (p / 8); idx += kScanThreads) {
+      const int r = idx / (p / 8), c8 = idx % (p / 8) * 8;
+      *reinterpret_cast<uint4*>(yb + r * y_stride + c8) =
+          *reinterpret_cast<const uint4*>(&ys[r * kLdY + c8]);
+    }
+  } else {
+    for (int idx = tid; idx < rows * p; idx += kScanThreads)
+      yb[idx / p * y_stride + idx % p] = ys[idx / p * kLdY + idx % p];
+  }
+}
+
+// A kernel's dynamic shared memory above 48 KB, allowed once per device
+// (the attribute holds for the process); a race sets it twice, harmlessly.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int device, int bytes, bool* done) {
+  if (device >= 0 && device < kMaxDevices && done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && device >= 0 && device < kMaxDevices)
+    done[device] = true;
+  return err;
+}
+
+bool chunk_state_smem_set[kMaxDevices], chunk_scan_smem_set[kMaxDevices];
 
 }  // namespace
 
 // The caller guarantees b, l, h > 0, h % g == 0, p <= 64, n <= 128,
-// 0 < cs <= 256, h and b < 65,536.
+// 0 < cs <= 256, h and b < 65,536, and x, B and C laid out as Strides says
+// (xb, xt, bcb, bct its batch and time strides).
 extern "C" int ssd_scan_f32(int device, const void* x, const void* dt,
                             const void* A, const void* B, const void* C,
                             const void* init, void* y, void* fin, int64_t b,
                             int64_t l, int64_t h, int64_t g, int64_t p,
-                            int64_t n, int64_t cs, void* stream) {
-  return launch<float>(device, x, dt, A, B, C, init, y, fin, b, l, h, g, p, n,
-                       cs, stream);
+                            int64_t n, int64_t cs, int64_t xb, int64_t xt,
+                            int64_t bcb, int64_t bct, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = smem_bytes(static_cast<int>(p), static_cast<int>(n),
+                                 static_cast<int>(cs));
+  err = cudaFuncSetAttribute(ssd_scan_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(h), static_cast<unsigned>(b));
+  ssd_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(B),
+      static_cast<const float*>(C), static_cast<const float*>(init),
+      static_cast<float*>(y), static_cast<float*>(fin), l, h, g,
+      static_cast<int>(p), static_cast<int>(n), static_cast<int>(cs),
+      Strides{xb, xt, bcb, bct});
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ssd_scan_bf16(int device, const void* x, const void* dt,
-                             const void* A, const void* B, const void* C,
-                             const void* init, void* y, void* fin, int64_t b,
-                             int64_t l, int64_t h, int64_t g, int64_t p,
-                             int64_t n, int64_t cs, void* stream) {
-  return launch<__nv_bfloat16>(device, x, dt, A, B, C, init, y, fin, b, l, h,
-                               g, p, n, cs, stream);
+// The bfloat16 entry's three launches, in this order on one stream.  Beyond
+// the float32 entry's guarantees: acum is (b, h, nc * cs) and states (b, nc,
+// h, p, n), both float32, s_in (b, nc, h, 2, p, n) bf16, nc = ceil(l / cs) <
+// 2^31 / ceil(cs / 64); vec says that p, n and the strides are multiples
+// of 8 and x, B, C and s_in 16-byte aligned.
+extern "C" int ssd_chunk_state_bf16(int device, const void* x, const void* dt,
+                                    const void* A, const void* B, void* acum,
+                                    void* states, int64_t b, int64_t l,
+                                    int64_t h, int64_t g, int64_t p, int64_t n,
+                                    int64_t cs, int64_t xb, int64_t xt,
+                                    int64_t bcb, int64_t bct, int vec,
+                                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = static_cast<int>(StateSmem::kBytes) + 1024;  // to align
+  err = allow_smem(ssd_chunk_state_kernel, device, smem,
+                   chunk_state_smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t nc = (l + cs - 1) / cs;
+  const dim3 grid(static_cast<unsigned>(nc), static_cast<unsigned>(h),
+                  static_cast<unsigned>(b));
+  ssd_chunk_state_kernel<<<grid, kStateThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const bf16*>(B),
+      static_cast<float*>(acum), static_cast<float*>(states), l, h, g,
+      static_cast<int>(p), static_cast<int>(n), static_cast<int>(cs),
+      Strides{xb, xt, bcb, bct}, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ssd_state_pass(int device, const void* acum, const void* init,
+                              const void* states, void* s_in, void* fin,
+                              int64_t b, int64_t l, int64_t h, int64_t p,
+                              int64_t n, int64_t cs, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t nc = (l + cs - 1) / cs, pn = p * n;
+  const int64_t per_block = 4 * kPassThreads;
+  const dim3 grid(static_cast<unsigned>((pn + per_block - 1) / per_block),
+                  static_cast<unsigned>(h), static_cast<unsigned>(b));
+  ssd_state_pass_kernel<<<grid, kPassThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(acum), static_cast<const float*>(init),
+      static_cast<const float*>(states), static_cast<bf16*>(s_in),
+      static_cast<float*>(fin), nc, h, pn, static_cast<int>(cs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ssd_chunk_scan_bf16(int device, const void* x, const void* dt,
+                                   const void* B, const void* C,
+                                   const void* acum, const void* s_in,
+                                   void* y, int64_t b, int64_t l, int64_t h,
+                                   int64_t g, int64_t p, int64_t n, int64_t cs,
+                                   int64_t xb, int64_t xt, int64_t bcb,
+                                   int64_t bct, int vec, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = static_cast<int>(ScanSmem::kBytes) + 1024;  // to align
+  err = allow_smem(ssd_chunk_scan_kernel, device, smem, chunk_scan_smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t nc = (l + cs - 1) / cs;
+  const int64_t tiles = (cs + kScanRows - 1) / kScanRows;
+  const dim3 grid(static_cast<unsigned>(nc * tiles), static_cast<unsigned>(h),
+                  static_cast<unsigned>(b));
+  ssd_chunk_scan_kernel<<<grid, kScanThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt),
+      static_cast<const bf16*>(B), static_cast<const bf16*>(C),
+      static_cast<const float*>(acum), static_cast<const bf16*>(s_in),
+      static_cast<bf16*>(y), l, h, g, static_cast<int>(p),
+      static_cast<int>(n), static_cast<int>(cs), Strides{xb, xt, bcb, bct},
+      vec);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -489,6 +489,71 @@ def test_ssd_step_matches_reference():
                                rtol=1e-5)
 
 
+# the bfloat16 kernels' gate against the plain version in float32: y to the
+# bfloat16 output's rounding plus float32 summation order, the state to 1e-4
+SSD_BF16_GATE = dict(atol=1e-3, rtol=4e-3)
+
+
+def _split(v):
+    """v = hi + lo, hi = bf16(v), lo = bf16(v - hi), both widened."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _ssd_split_emulation(x, dt, A, B, C, chunk, initial_state):
+    """The bfloat16 kernels' arithmetic, in float32 torch, one (b, h) chunk
+    loop at a time: dt folded into P and w = exp(a_last - a) dt into x, the
+    float32 operand of each product split into bf16 hi + lo and multiplied
+    twice (C B^T once: its operands are bf16), sums in float32, the state
+    carried in float32, y rounded once to x's dtype."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    cs = min(chunk, l)
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    y = torch.empty((b, l, h, p))
+    fin = torch.empty((b, h, p, n))
+    for bi in range(b):
+        for hi in range(h):
+            gi = hi // (h // g)
+            carry = initial_state[bi, hi].float()
+            for t0 in range(0, l, cs):
+                rows = slice(t0, min(t0 + cs, l))
+                d, xs = dt[bi, rows, hi], xf[bi, rows, hi]
+                Bs, Cs = Bf[bi, rows, gi], Cf[bi, rows, gi]
+                a = torch.cumsum(d * A[hi], 0)
+                s_hi, s_lo = _split(carry)
+                carried = (Cs @ s_hi.T + Cs @ s_lo.T) * torch.exp(a)[:, None]
+                keep = torch.ones((len(d), len(d)), dtype=torch.bool).tril()
+                P = torch.where(keep, (Cs @ Bs.T)
+                                * torch.exp(a[:, None] - a[None, :]) * d, 0.0)
+                p_hi, p_lo = _split(P)
+                y[bi, rows, hi] = carried + (p_hi @ xs + p_lo @ xs)
+                w_hi, w_lo = _split(torch.exp(a[-1] - a)[:, None] * d[:, None]
+                                    * xs)
+                carry = (w_hi.T @ Bs + w_lo.T @ Bs) + torch.exp(a[-1]) * carry
+            fin[bi, hi] = carry
+    return y.to(x.dtype), fin
+
+
+@pytest.mark.parametrize("case", SSD_CASES + [(1, 600, 24, 64, 1, 128, 256)],
+                         ids=str)
+def test_ssd_scan_split_precision_holds_the_float32_gate(case):
+    """The bfloat16 kernels' precision design, checked on the CPU: with
+    every float32 operand split into two bf16 products, y stays within the
+    float32 gate of the plain version in float32 and the state within
+    1e-4."""
+    args, init = _ssd_inputs(case, "bfloat16", seed=1)
+    targs = [_to_t(a) for a in args[:5]] + [args[5]]
+    init_t = _to_t(init)
+    want_y, want_s = ssd_ref.ssd_chunked(*(t.float() for t in targs[:5]),
+                                         targs[5], initial_state=init_t)
+    y, st = _ssd_split_emulation(*targs, init_t)
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(y), want_y.numpy(), **SSD_BF16_GATE)
+    np.testing.assert_allclose(st.numpy(), want_s.numpy(), atol=1e-4,
+                               rtol=1e-4)
+
+
 def _rglru_inputs(case, dtype, seed=0):
     b, l, w = case
     rng = np.random.default_rng(seed)
@@ -801,18 +866,28 @@ def test_flash_attention_bf16_refuses_head_dims_and_launches_nothing(
     assert fa_ops.launches == before
 
 
+# beyond SSD_CASES on the card: the serve call's widths at one chunk of 600
+# steps; a chunk of 100 (not a multiple of 16); 4 heads a group with a
+# padded tail; the serve call's width at one request; p and n off the
+# 8-element rows and p * n off 4 (the element-by-element loads and stores)
+SSD_CARD_CASES = [(1, 600, 24, 64, 1, 128, 256), (1, 100, 4, 64, 1, 128, 256),
+                  (2, 1000, 8, 64, 2, 128, 256),
+                  (1, 4096, 24, 64, 1, 128, 256), (1, 77, 3, 10, 1, 7, 40)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", SSD_CASES + [(1, 600, 24, 64, 1, 128, 256)],
-                         ids=str)
+@pytest.mark.parametrize("case", SSD_CASES + SSD_CARD_CASES, ids=str)
 def test_ssd_scan_kernel_matches_plain(case, dtype, cuda):
-    """The kernel does all its arithmetic in float32, as the TPU kernel
-    does, so its oracle is the plain version in float32 on the same values
-    (bfloat16 inputs widened exactly): y to the bfloat16 rounding of the
-    output (2^-9 relative, rtol 4e-3) plus float32 summation order (atol
-    1e-3); the final state, float32 on both sides, to 1e-4.  (The plain
-    version in bfloat16 keeps its bulk einsums in bfloat16 and differs from
-    both by its own rounding; ``chip_smoke.py`` reports that distance.)"""
+    """The kernels keep the TPU kernel's float32 contract (the bfloat16
+    entry by splitting each float32 operand of its tensor-core products into
+    two bf16 parts), so their oracle is the plain version in float32 on the
+    same values (bfloat16 inputs widened exactly): y to the bfloat16
+    rounding of the output (2^-9 relative, rtol 4e-3) plus float32
+    summation order (atol 1e-3); the final state, float32 on both sides, to
+    1e-4.  (The plain version in bfloat16 keeps its bulk einsums in bfloat16
+    and differs from both by its own rounding; ``chip_smoke.py`` reports
+    that distance.)"""
     args, init = _ssd_inputs(case, dtype, seed=1)
     targs = [_to_t(a).to(cuda) for a in args[:5]] + [args[5]]
     init_t = _to_t(init).to(cuda)
@@ -822,11 +897,71 @@ def test_ssd_scan_kernel_matches_plain(case, dtype, cuda):
     y, st = ssd_ops.ssd_scan(*targs, initial_state=init_t)
     torch.cuda.synchronize()
     assert ssd_ops.launches == before + 1 and y.dtype == targs[0].dtype
-    ytol = (dict(atol=1e-3, rtol=4e-3) if dtype == "bfloat16"
+    ytol = (SSD_BF16_GATE if dtype == "bfloat16"
             else dict(atol=5e-5, rtol=1e-4))
     np.testing.assert_allclose(_f32(y.cpu()), want_y.cpu().numpy(), **ytol)
     np.testing.assert_allclose(st.cpu().numpy(), want_s.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(2, 300, 4, 64, 2, 128, 128),
+                                  (1, 77, 3, 10, 1, 7, 40)], ids=str)
+def test_ssd_scan_reads_column_slices_in_place(case, dtype, cuda):
+    """Mamba2 hands x, B and C over as column slices of one projection; the
+    kernels read them through their strides (16 bytes at a time in the
+    first case, element by element in the second) and give bitwise what
+    they give on contiguous copies.  x with its heads not packed is copied
+    first, to the same result."""
+    b, l, h, p, g, n, chunk = case
+    rng = np.random.default_rng(4)
+    tdt = _DT[dtype][1]
+    proj = torch.from_numpy(rng.normal(0, 1, (b, l, h * p + 2 * g * n)))
+    proj = proj.to(tdt).to(cuda)
+    x = proj[..., :h * p].reshape(b, l, h, p)
+    B = proj[..., h * p:h * p + g * n].reshape(b, l, g, n)
+    C = proj[..., h * p + g * n:].reshape(b, l, g, n)
+    assert not (x.is_contiguous() or B.is_contiguous())
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, l, h))).float().to(cuda)
+    A = torch.from_numpy(-rng.uniform(0.1, 1, (h,))).float().to(cuda)
+    init = torch.from_numpy(rng.normal(0, 0.5, (b, h, p, n))).float().to(cuda)
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd_scan(x, dt, A, B, C, chunk, initial_state=init)
+    want_y, want_s = ssd_ops.ssd_scan(x.contiguous(), dt, A, B.contiguous(),
+                                      C.contiguous(), chunk,
+                                      initial_state=init)
+    x_t = x.transpose(2, 3).contiguous().transpose(2, 3)   # heads strided
+    y_t, st_t = ssd_ops.ssd_scan(x_t, dt, A, B, C, chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 3
+    for got_y, got_s in ((y, st), (y_t, st_t)):
+        assert got_y.is_contiguous()
+        assert torch.equal(got_y, want_y) and torch.equal(got_s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, entries", [
+    ("bfloat16", ["ssd_chunk_state_bf16", "ssd_state_pass",
+                  "ssd_chunk_scan_bf16"]),
+    ("float32", ["ssd_scan_f32"])])
+def test_ssd_scan_entry_follows_dtype(dtype, entries, cuda, monkeypatch):
+    """bfloat16 runs the three tensor-core launches, float32 the
+    float32-pipe kernel, and either call counts one launch."""
+    called = []
+    entry = ssd_ops._entry
+
+    def noting(name):
+        called.append(name)
+        return entry(name)
+
+    monkeypatch.setattr(ssd_ops, "_entry", noting)
+    args, init = _ssd_inputs(SSD_CASES[1], dtype, seed=3)
+    targs = [_to_t(a).to(cuda) for a in args[:5]] + [args[5]]
+    before = ssd_ops.launches
+    ssd_ops.ssd_scan(*targs, initial_state=_to_t(init).to(cuda))
+    torch.cuda.synchronize()
+    assert called == entries and ssd_ops.launches == before + 1
 
 
 @pytest.mark.cuda
