@@ -56,12 +56,16 @@ Phases, each printed as one JSON line:
            of the head, whose bytes are reported apart; param_bytes is the
            tree's memory, head included), prefill ms,
            decode ms a step, tokens a second, peak device memory, and from
-           a profiled repeat the device's busy time, idle share and time by
-           kernel name (for Mamba2 ssd_scan's own, its three kernels by
-           name, and its share of busy; each must show whenever ssd_scan
-           launched).  Launch counters set to 0 just before the prefill
-           and read just after it and after the decode.  Checks: one launch
-           a layer per prefill (RecurrentGemma: rglru_scan 26, flash_attention
+           a profiled repeat the device's busy time, idle share, time by
+           kernel name, PyTorch's elementwise kernels' total and
+           rglru_scan's own (for Mamba2 ssd_scan's own, its three kernels by
+           name, and its share of busy; each must show whenever its kernel
+           launched), and the LLM kernels' calls by dtype (RecurrentGemma's
+           rglru: bfloat16 in the stacked units, float32 in the tail).
+           Launch counters (rglru_scan's also by entry) set to 0 just
+           before the prefill and read just after it and after the decode.
+           Checks: one launch a layer per prefill (RecurrentGemma:
+           rglru_scan 26, its entries' counts summing to it, flash_attention
            12; Mamba2: ssd_scan 24) and none in decode; finite logits; every
            token in the vocabulary; the first decode step's logits against
            a full forward over prompt + that token, within 5e-2 of the
@@ -70,7 +74,8 @@ Phases, each printed as one JSON line:
   kernels  each CUDA kernel against its plain PyTorch version, at the
            shapes the paths gave it (ps_apply's median call per table, no
            sentinel rows, as the shard sends none; MF's too; the serve
-           path's first call for the LLM kernels) and at stress shapes
+           path's first call for the LLM kernels, and for rglru_scan also
+           the float32 tail's first call) and at stress shapes
            (tests/test_kernels.py's cases for the LLM kernels, and for
            flash_attention the bfloat16 kernel's edges: every head-dim
            tier, dv != dh, ragged sq / skv, a q suffix, 16 heads at d 256
@@ -79,7 +84,13 @@ Phases, each printed as one JSON line:
            a batch 40,000 deep with 2% sentinels in f64 and f32, and 4,096
            entries all on one row).  The
            parameter-server kernels and rglru_scan are held bitwise (for
-           vap_accum, NaN meets NaN; its payload is free); flash_attention to
+           vap_accum, NaN meets NaN; its payload is free; rglru_scan's fused
+           entries against the plain version on the card, whose exp, log1p
+           and sqrt are the same CUDA functions, in bfloat16 and float32;
+           its bare recurrence, linear_recurrence, at the same cases and
+           the serve shape in float32, on CPU copies; and its branch-free
+           sqrt against __fsqrt_rn on every float of [1e-12, 1], the gate's
+           domain); flash_attention to
            the bfloat16 output's rounding at the serve path's call (atol
            4e-3, rtol 1e-2; the mean |output| is printed beside the error)
            and to tests/test_kernels.py's tolerance at the stress shapes,
@@ -111,7 +122,9 @@ last line {"ok": true, "device": {...}}.  Any failure raises: the exit code
 is non-zero and the last line is not printed.  There is no CPU path.
 """
 import argparse
+import collections
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -485,16 +498,76 @@ def check_ssd(dev, x, dt, A, B, C, chunk, initial_state=None):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_rglru(dev, a, b, initial=None):
+def check_rglru(dev, x, r_gate, i_gate, a_param, initial=None, c=8.0):
+    """The fused entry (gates, recurrence and h's cast in one launch)
+    against the plain version on the card, bitwise: its exp, log1p and sqrt
+    are the same CUDA math functions, and every other op rounds once in
+    both."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+
+    args = (x, r_gate, i_gate, a_param, initial, c)
+    h, h_last = ops.rglru(*args)
+    want_h, want_last = ref.rglru(*args)
+    torch.cuda.synchronize()
+    err = float((h.float() - want_h.float()).abs().max())
+    err_last = float((h_last - want_last).abs().max())
+    if not (torch.equal(h, want_h) and torch.equal(h_last, want_last)):
+        raise AssertionError(f"rglru {tuple(x.shape)} {x.dtype}: kernel != "
+                             f"plain on the card (max abs err h {err}, "
+                             f"h_last {err_last})")
+    del want_h, want_last
+    big = x.numel() > 10_000_000
+    ms = cuda_ms(lambda: ops.rglru(*args))
+    plain_ms = cuda_ms(lambda: ref.rglru(*args), reps=3 if big else REPS,
+                       warmup=1)
+    esize = x.element_size()
+    nbytes = esize * (4 * x.numel() + a_param.numel()) + 4 * (
+        h_last.numel() + (initial.numel() if initial is not None else 0))
+    # per element: two exp, a sqrt and eight other float32 ops
+    bound_ms, bound_by = bound(nbytes, 11 * x.numel(), torch.float32)
+    return {"shape": f"x/r/i {'x'.join(map(str, x.shape))} {_dname(x.dtype)}"
+                     + (" initial state" if initial is not None else ""),
+            "entry": ops.RGLRU_ENTRIES[x.dtype],
+            "max_abs_err": err, "max_abs_err_h_last": err_last,
+            "tolerance": "bitwise (0)", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms}
+
+
+def check_rglru_sqrt(dev):
+    """The fused kernel's branch-free sqrt against __fsqrt_rn on every float
+    of the gate's domain, [1e-12, 1]: no bit may differ."""
+    from repro_torch.kernels import _build
+
+    fn = _build.entry("rglru_sqrt_mismatches", [
+        ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p,
+        ctypes.c_void_p])
+    lo, hi = (int(np.float32(v).view(np.uint32)) for v in (1e-12, 1.0))
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    err = fn(torch.cuda.current_device(), lo, hi, count.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    if err or int(count):
+        raise AssertionError(f"rglru_scan's sqrt: launch error {err}, "
+                             f"{int(count)} floats in [1e-12, 1] differ "
+                             f"from __fsqrt_rn")
+    return {"domain": "[1e-12, 1]", "floats": hi - lo + 1, "mismatches": 0}
+
+
+def check_linear_recurrence(dev, a, b, initial=None):
+    """The bare recurrence entry against the plain version on CPU copies,
+    bitwise."""
     from repro_torch.kernels.rglru_scan import ops, ref
 
     h, h_last = ops.linear_recurrence(a, b, initial)
-    want_h, want_last = ref.linear_recurrence(a, b, initial)
-    torch.cuda.synchronize()
-    err = float((h - want_h).abs().max())
-    if not (torch.equal(h, want_h) and torch.equal(h_last, want_last)):
-        raise AssertionError(f"rglru_scan {tuple(a.shape)}: kernel != plain "
-                             f"(max abs err {err})")
+    want_h, want_last = ref.linear_recurrence(
+        a.cpu(), b.cpu(), None if initial is None else initial.cpu())
+    err = float((h.cpu() - want_h).abs().max())
+    if not (torch.equal(h.cpu(), want_h) and torch.equal(h_last.cpu(),
+                                                         want_last)):
+        raise AssertionError(f"linear_recurrence {tuple(a.shape)}: kernel "
+                             f"!= plain (max abs err {err})")
     del want_h, want_last
     big = a.numel() > 10_000_000
     ms = cuda_ms(lambda: ops.linear_recurrence(a, b, initial))
@@ -505,9 +578,10 @@ def check_rglru(dev, a, b, initial=None):
     bound_ms, bound_by = bound(nbytes, 2 * a.numel(), torch.float32)
     return {"shape": f"a/b {'x'.join(map(str, a.shape))} float32"
                      + (" initial state" if initial is not None else ""),
+            "entry": "linear_recurrence_f32",
             "max_abs_err": err, "tolerance": "bitwise (0)", "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "bound_share": bound_ms / ms}
 
 
 def llm_stress_cases(dev):
@@ -533,7 +607,8 @@ def llm_stress_cases(dev):
             torch.arange(skv - sq, skv, dtype=torch.int32, device=dev),
             k_pos, window=window, cap=cap)
 
-    out = {"flash_attention": [], "ssd_scan": [], "rglru_scan": []}
+    out = {"flash_attention": [], "ssd_scan": [], "rglru_scan": [],
+           "linear_recurrence": []}
     for dtype in (torch.float32, torch.bfloat16):
         for case in ((2, 256, 256, 2, 2, 64, 64, None, None),
                      (2, 256, 256, 2, 2, 64, 64, 100, None),
@@ -553,7 +628,16 @@ def llm_stress_cases(dev):
                 initial_state=randn(b, h, p, n, std=0.5)))
     for b, l, w in ((2, 64, 128), (1, 100, 50), (3, 256, 256), (1, 128, 4096),
                     (4, 333, 4096)):
-        out["rglru_scan"].append(check_rglru(
+        for dtype in (torch.bfloat16, torch.float32):
+            out["rglru_scan"].append(check_rglru(
+                dev, randn(b, l, w, dtype=dtype),
+                uniform(0, 1, b, l, w).to(dtype),
+                uniform(0, 1, b, l, w).to(dtype), randn(w, dtype=dtype),
+                randn(b, w)))
+    # the bare recurrence: the same cases, and the serve shape in float32
+    for b, l, w in ((2, 64, 128), (1, 100, 50), (3, 256, 256), (1, 128, 4096),
+                    (4, 333, 4096), (4, 4096, 4096)):
+        out["linear_recurrence"].append(check_linear_recurrence(
             dev, uniform(0.7, 0.999, b, l, w), randn(b, l, w, std=0.1),
             randn(b, w)))
     out["flash_attention"] += [flash(case, torch.bfloat16)
@@ -618,6 +702,22 @@ def ssd_scan_seconds(device_s: dict, launched: int) -> dict:
         raise AssertionError(f"ssd_scan launched {launched} times, but a "
                              f"kernel matched no name: {out}")
     return {**out, "total": sum(out.values())}
+
+
+# rglru_scan's kernel by name (both entries, and linear_recurrence, are
+# instantiations of one template); PyTorch's elementwise kernels by name
+RGLRU_KERNEL = "rglru_kernel"
+ELEMENTWISE = re.compile(r"elementwise_kernel")
+
+
+def rglru_scan_seconds(device_s: dict, launched: int) -> float:
+    """rglru_scan's device seconds.  Fails if it launched and its kernel
+    matched no name."""
+    out = sum(v for k, v in device_s.items() if k.startswith(RGLRU_KERNEL))
+    if launched and not out > 0:
+        raise AssertionError(f"rglru_scan launched {launched} times, but "
+                             f"{RGLRU_KERNEL} matched no kernel by name")
+    return out
 
 
 def device_seconds(prof) -> dict:
@@ -709,12 +809,13 @@ class Sites:
 
 
 @contextlib.contextmanager
-def path_run(dev):
+def path_run(dev, keep_first=False):
     """Drive one path inside the block: every kernel's launch counter set to
     0 just before and read just after (into ``run["launches"]``), the shape
     of every call noted (``run["calls"]``; vap_accum's with the max it
-    returned; an LLM kernel's first call's inputs kept in ``run["first"]``),
-    peak device memory reset."""
+    returned; with ``keep_first``, an LLM kernel's first call in each dtype
+    keeps its inputs in ``run["first"][(kernel, dtype)]``), peak device
+    memory reset."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ps_apply import ops as apply_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
@@ -726,7 +827,7 @@ def path_run(dev):
                               rg_ops)))
     attrs = {"ps_apply": "scatter_add_", "topk_mag": "magnitude_order",
              "vap_accum": "vap_accum_", "flash_attention": "flash_attention",
-             "ssd_scan": "ssd_scan", "rglru_scan": "linear_recurrence"}
+             "ssd_scan": "ssd_scan", "rglru_scan": "rglru"}
     orig = {k: getattr(mods[k], attrs[k]) for k in KERNELS}
     # the LLM kernels' first call keeps its inputs (references, no copy)
     run = {"calls": {k: [] for k in KERNELS}, "first": {}, "mods": mods}
@@ -746,9 +847,11 @@ def path_run(dev):
 
     def noting(name):
         def call(*args, **kw):
-            run["calls"][name].append(tuple(tuple(a.shape) for a in args
-                                            if isinstance(a, torch.Tensor)))
-            run["first"].setdefault(name, (args, kw))
+            run["calls"][name].append((_dname(args[0].dtype), tuple(
+                tuple(a.shape) for a in args
+                if isinstance(a, torch.Tensor))))
+            if keep_first:
+                run["first"].setdefault((name, args[0].dtype), (args, kw))
             return orig[name](*args, **kw)
         return call
 
@@ -760,6 +863,8 @@ def path_run(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     for m in mods.values():
         m.launches = 0
+    for e in rg_ops.launches_by_entry:
+        rg_ops.launches_by_entry[e] = 0
     try:
         yield run
         torch.cuda.synchronize()
@@ -1128,6 +1233,7 @@ def run_serve_phase(dev, seed):
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t
             after_prefill = {k: m.launches for k, m in run["mods"].items()}
+            rglru_by_entry = dict(run["mods"]["rglru_scan"].launches_by_entry)
             t = time.perf_counter()
             tokens, caches = decode(nxt, caches, SERVE_GEN - 1)
             torch.cuda.synchronize()
@@ -1135,25 +1241,35 @@ def run_serve_phase(dev, seed):
         peak = torch.cuda.max_memory_allocated(dev)
         total = run["launches"]
         in_decode = {k: total[k] - after_prefill[k] for k in KERNELS}
-        for k, v in run["first"].items():
-            first.setdefault(k, v)
+        calls_by_dtype = {k: dict(collections.Counter(d for d, _ in c))
+                          for k, c in run["calls"].items() if c}
         del caches, run
         tokens = tokens.cpu()
 
-        # a profiled repeat: prefill and 4 decode steps
+        # a profiled repeat: prefill and 4 decode steps; it keeps the LLM
+        # kernels' first call in each dtype for the kernels phase (held
+        # here, so that the timed run's peak memory does not count them)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with path_run(dev, keep_first=True) as rep, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             nxt2, caches = prefill_fn(params, {"ids": prompts})
             decode(nxt2, caches, 4)
             torch.cuda.synchronize()
         prof_wall_s = time.perf_counter() - t
-        del caches
+        for k, (args, kw) in rep["first"].items():
+            if k[0] == "rglru_scan":
+                # 1.2 GB of x, r, i wait on the host, so that the next
+                # model's timed peak holds only what it held before
+                args = tuple(a.cpu() for a in args)      # all tensors
+            first.setdefault(k, (args, kw))
+        del caches, rep
         device_s = device_seconds(prof)
         busy_s = sum(device_s.values())
         ssd_s = (ssd_scan_seconds(device_s, after_prefill["ssd_scan"])
                  if after_prefill["ssd_scan"] else None)
+        rglru_s = rglru_scan_seconds(device_s, after_prefill["rglru_scan"])
 
         # the first decode step against a full forward over prompt + token
         ctx = ShardCtx()
@@ -1194,11 +1310,17 @@ def run_serve_phase(dev, seed):
             "launches_prefill": {k: after_prefill[k] for k in KERNELS
                                  if after_prefill[k]},
             "launches_decode": {k: v for k, v in in_decode.items() if v},
+            "rglru_scan_launches_prefill_by_entry": rglru_by_entry,
+            "calls_by_dtype": calls_by_dtype,
             "profiled": {"what": "prefill + 4 decode steps",
                          "wall_s": prof_wall_s, "device_busy_s": busy_s,
                          "device_idle_share": 1.0 - busy_s / prof_wall_s,
                          "device_s_by_name": dict(sorted(
                              device_s.items(), key=lambda kv: -kv[1])[:20]),
+                         "elementwise_device_s": sum(
+                             v for k, v in device_s.items()
+                             if ELEMENTWISE.search(k)),
+                         "rglru_scan_device_s": rglru_s,
                          **({"ssd_scan_device_s": ssd_s,
                              "ssd_scan_share_of_busy": ssd_s["total"]
                              / busy_s} if ssd_s else {})},
@@ -1215,6 +1337,10 @@ def run_serve_phase(dev, seed):
             raise AssertionError(f"{name}: prefill launched {got}, not {want}")
         if any(in_decode.values()):
             raise AssertionError(f"{name}: decode launched {in_decode}")
+        if sum(rglru_by_entry.values()) != after_prefill["rglru_scan"]:
+            raise AssertionError(f"{name}: rglru_scan's launches by entry "
+                                 f"{rglru_by_entry} do not sum to "
+                                 f"{after_prefill['rglru_scan']}")
         if not (finite and in_vocab):
             raise AssertionError(f"{name}: finite {finite}, tokens in the "
                                  f"vocabulary {in_vocab}")
@@ -1274,7 +1400,7 @@ def main() -> None:
     spmd_launches, vap_shapes = run_lda_spmd_phase(dev, corpus)
     launches.update(spmd_launches)
     app_launches, app_calls = run_apps_phase(dev)
-    serve_launches, first, _ = run_serve_phase(dev, args.seed)
+    serve_launches, first, serve_lines = run_serve_phase(dev, args.seed)
     for name in ("flash_attention", "rglru_scan"):
         launches[name] = serve_launches["recurrentgemma-9b"][name]
     launches["ssd_scan"] = serve_launches["mamba2-130m"]["ssd_scan"]
@@ -1311,26 +1437,35 @@ def main() -> None:
                            special=True)],
     }
     # the LLM kernels: first at the serve path's first call, then stress
-    (q, k, v, q_pos, k_pos), kw = first["flash_attention"]
-    path_llm = {"flash_attention": check_flash(dev, q, k, v, q_pos, k_pos,
-                                               tol=FLASH_PATH_TOL, **kw)}
-    (x, dt, A, B, C), kw = first["ssd_scan"]
-    path_llm["ssd_scan"] = check_ssd(dev, x, dt, A, B, C, **kw)
-    (a, b, *init), kw = first["rglru_scan"]
-    path_llm["rglru_scan"] = check_rglru(dev, a, b, *init, **kw)
-    del first, q, k, v, x, B, C, a, b
+    # (rglru_scan: the serve path's first bfloat16 call, then the float32
+    # tail's first)
+    bf16, f32 = torch.bfloat16, torch.float32
+    (q, k, v, q_pos, k_pos), kw = first[("flash_attention", bf16)]
+    path_llm = {"flash_attention": [check_flash(dev, q, k, v, q_pos, k_pos,
+                                                tol=FLASH_PATH_TOL, **kw)]}
+    (x, dt, A, B, C), kw = first[("ssd_scan", bf16)]
+    path_llm["ssd_scan"] = [check_ssd(dev, x, dt, A, B, C, **kw)]
+    path_llm["rglru_scan"] = [
+        check_rglru(dev, *(a.to(dev) for a in args), **kw)
+        for args, kw in (first[("rglru_scan", bf16)],
+                         first[("rglru_scan", f32)])]
+    del first, q, k, v, x, B, C
     torch.cuda.empty_cache()
     stress = llm_stress_cases(dev)
-    for name, case in path_llm.items():
-        cases[name] = [case] + stress[name]
+    for name, path_cases in path_llm.items():
+        cases[name] = path_cases + stress[name]
+    linear_recurrence = stress["linear_recurrence"]
     emit({"phase": "kernels",
           "tolerance": "bitwise (0) for ps_apply, topk_mag, vap_accum, "
-                       "rglru_scan; flash_attention and ssd_scan per case",
+                       "rglru_scan (its fused entries against the plain "
+                       "version on the card, linear_recurrence on CPU "
+                       "copies); flash_attention and ssd_scan per case",
           "path_calls": {**{k: len(v) for k, v in calls.items()},
                          "vap_accum": launches["vap_accum"]},
           "app_calls": {k: len(v) for k, v in app_calls.items()},
           "app_launches": app_launches,
-          "cases": cases})
+          "rglru_sqrt": check_rglru_sqrt(dev),
+          "cases": {**cases, "linear_recurrence": linear_recurrence}})
 
     source = {"ps_apply": ("src/repro_torch/kernels/ps_apply/kernel.cu",
                            "src/repro/kernels/ps_apply/kernel.py:47"),
@@ -1344,15 +1479,29 @@ def main() -> None:
               "ssd_scan": ("src/repro_torch/kernels/ssd_scan/kernel.cu",
                            "src/repro/kernels/ssd_scan/kernel.py:79"),
               "rglru_scan": ("src/repro_torch/kernels/rglru_scan/kernel.cu",
-                             "src/repro/kernels/rglru_scan/kernel.py:51")}
+                             "src/repro/kernels/rglru_scan/kernel.py:88")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")
     table = []
     for name, (src, replaces) in source.items():
         main_case = cases[name][0]          # the main path's shape
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
-                      **{k: main_case[k] for k in (
-                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                          "bound_by", "library_ms", "shape")}})
+                      **{k: main_case[k] for k in keys}})
+    # rglru_scan's entries: the fused one per dtype at the serve path's
+    # calls, the bare recurrence at the serve shape (off the path); launches:
+    # each entry's own count over RecurrentGemma-9B's prefill
+    rg_launches = serve_lines["recurrentgemma-9b"][
+        "rglru_scan_launches_prefill_by_entry"]
+    table[-1]["entries"] = [
+        {"entry": case["entry"], "replaces": source["rglru_scan"][1],
+         "launches": rg_launches[case["entry"]],
+         **{k: case[k] for k in keys}}
+        for case in cases["rglru_scan"][:2]] + [
+        {"entry": "linear_recurrence_f32",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:51",
+         "launches": rg_launches["linear_recurrence_f32"],
+         **{k: linear_recurrence[-1][k] for k in keys}}]
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,3 +13,12 @@ nothing of JAX or of ``repro``.
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``), which the CPU tests do.
 """
+
+import torch as _torch
+
+# PyTorch's CPU exp runs MKL's vector math over 2,048-element chunks on the
+# OpenMP threads.  When a process's first call to it is multi-threaded, a
+# chunk can come out of a less accurate exp (relative error ~5e-5 against
+# ~3e-8), so the plain RG-LRU's gates differed between two identical calls.
+# One call on one thread first initialises it; every later call is exact.
+_torch.exp(_torch.zeros(1))

@@ -5,8 +5,9 @@ Every ``kernels/*/kernel.cu`` is compiled for Hopper (``sm_90a``) by its own
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 build runs at first use, from the package's own sources, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``); the
-library's file name carries a hash of the sources and flags, so an edited
-kernel is rebuilt and an unchanged one is loaded as it is.
+library's file name carries a hash of the sources, the headers they share
+(``kernels/*.cuh``) and the flags, so an edited kernel is rebuilt and an
+unchanged one is loaded as it is.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on hosts that have no ``nvcc``.
@@ -50,7 +51,7 @@ def _nvcc() -> str:
 
 def _library_path(srcs: List[Path]) -> Path:
     h = hashlib.sha256(" ".join(ARCH + CFLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(KERNELS_DIR.glob("*.cuh")):   # and shared headers
         h.update(s.name.encode() + s.parent.name.encode() + s.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 

@@ -66,7 +66,8 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
+
+#include "../hopper.cuh"
 
 namespace {
 
@@ -299,6 +300,8 @@ int launch(int device, const void* q, const void* k, const void* v,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int kBM = 128;          // query rows a block: two consumer warpgroups
 constexpr int kBN = 64;           // keys a tile
 constexpr int kStages = 2;        // K/V tiles in the ring
@@ -333,42 +336,6 @@ struct Smem {
 // a stage's flag: its tile needs the per-element mask, is wholly seen, or
 // marks the end of the block's key tiles
 constexpr int kMasked = 0, kWhole = 1, kEnd = 2;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 // one box of a 4-D tensor map (d, heads, seq, batch) into shared memory,
 // completing on ``bar``; coordinates past the tensor read as zeros
@@ -753,26 +720,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                (static_cast<int64_t>(bi) * sq * kvh * G + qhead) * dv, window,
                cap, scale);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, from the libcuda that the process has loaded
-// (the library links no libcuda of its own)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
 }
 
 // a contiguous bf16 (batch, seq, heads, d) tensor as the 4-D map (d, heads,

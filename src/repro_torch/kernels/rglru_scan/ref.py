@@ -1,7 +1,9 @@
 """Plain PyTorch version of the RG-LRU linear recurrence (arXiv:2402.19427).
 
 The CPU path of :mod:`repro_torch.kernels.rglru_scan.ops` and the oracle the
-CUDA kernel is held against.  ``linear_recurrence`` walks time in order,
+CUDA kernel is held against (``rglru`` run on the card, where its exp,
+log1p and sqrt are the kernel's CUDA functions; ``linear_recurrence`` on
+any device).  ``linear_recurrence`` walks time in order,
 one step at a time, like the TPU kernel and the CUDA kernel, with the
 product and the sum rounded separately (two float32 ops, no fused
 multiply-add): the JAX package's oracle (``rglru_scan/ref.py``) takes an

@@ -21,6 +21,12 @@ recurrence, on CPU copies; with ``tests/test_kernels.py``'s tolerances for
 flash attention and the SSD scan, on the card); they skip on a host without
 a CUDA device.
 """
+import ctypes
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -39,7 +45,7 @@ from repro.kernels.topk_mag import ops as ref_topk
 from repro.kernels.vap_accum import kernel as ref_vap_kernel
 from repro.kernels.vap_accum import ref as ref_vap
 from repro.kernels.vap_accum.ops import vap_accum_tree as ref_vap_tree
-from repro_torch.kernels import resolve_device
+from repro_torch.kernels import _build, resolve_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ps_apply import ops as apply_ops
@@ -580,27 +586,112 @@ def test_rglru_linear_recurrence_plain_matches_reference(case, dtype):
                                atol=0 if dtype == "float32" else 1e-2)
 
 
-def test_rglru_gates_and_step_match_reference():
-    rng = np.random.default_rng(7)
+def _rglru_gate_inputs(case, seed=7):
+    """x, r, i (b, l, w), Λ (w,) and an initial state (b, w) as float32
+    numpy arrays (r and i in (0, 1), as sigmoids give them)."""
+    b, l, w = case
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, l, w)).astype(np.float32),
+            rng.uniform(0, 1, (b, l, w)).astype(np.float32),
+            rng.uniform(0, 1, (b, l, w)).astype(np.float32),
+            rng.normal(0, 1, (w,)).astype(np.float32),
+            rng.normal(0, 1, (b, w)).astype(np.float32))
+
+
+def _as(a, dtype):
+    """A float32 numpy array as a torch tensor of ``dtype`` (rounded to
+    nearest even, as jnp.asarray rounds it)."""
+    return torch.from_numpy(a).to(_DT[dtype][1])
+
+
+# h against the reference's associative scan, which rounds the float32
+# state in another order: float32 to 5e-5; bfloat16 to one bf16 unit in the
+# last place (2^-7 relative) of the rounded output
+_RGLRU_REF_TOL = {"float32": dict(atol=5e-5, rtol=0),
+                  "bfloat16": dict(atol=5e-5, rtol=2**-7)}
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zeros", "initial"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_gates_and_step_match_reference(dtype, init):
     b, l, w = 2, 96, 64
-    x = rng.normal(0, 1, (b, l, w)).astype(np.float32)
-    r = rng.uniform(0, 1, (b, l, w)).astype(np.float32)
-    i = rng.uniform(0, 1, (b, l, w)).astype(np.float32)
-    lam = rng.normal(0, 1, (w,)).astype(np.float32)
-    h, h_last = rg_ops.rglru(*map(torch.from_numpy, (x, r, i, lam)))
-    want_h, want_last = jax.jit(ref_rg.rglru)(*map(jnp.asarray, (x, r, i, lam)))
-    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=5e-5)
+    *xril, h0 = _rglru_gate_inputs((b, l, w))
+    h0 = h0 if init else None
+    h, h_last = rg_ops.rglru(*(_as(a, dtype) for a in xril),
+                             initial=torch.from_numpy(h0) if init else None)
+    x, r, i, lam = (jnp.asarray(a, _DT[dtype][0]) for a in xril)
+    want_h, want_last = jax.jit(ref_rg.rglru)(
+        x, r, i, lam, jnp.asarray(h0) if init else None)
+    assert h.dtype == _DT[dtype][1] and h_last.dtype == torch.float32
+    np.testing.assert_allclose(_f32(h), _f32(want_h), **_RGLRU_REF_TOL[dtype])
     np.testing.assert_allclose(h_last.numpy(), np.asarray(want_last),
                                atol=5e-5)
-    hs = torch.zeros((b, w))
-    hj = jnp.zeros((b, w))
+    hs = torch.from_numpy(h0) if init else torch.zeros((b, w))
+    hj = jnp.asarray(h0) if init else jnp.zeros((b, w))
     for t in range(4):
-        _, hs = rg_ops.rglru_step(hs, *(torch.from_numpy(a[:, t])
-                                        for a in (x, r, i)),
-                                  torch.from_numpy(lam))
-        _, hj = ref_rg.rglru_step(hj, *(jnp.asarray(a[:, t])
-                                        for a in (x, r, i)), jnp.asarray(lam))
+        _, hs = rg_ops.rglru_step(hs, *(_as(a[:, t], dtype)
+                                        for a in xril[:3]),
+                                  _as(xril[3], dtype))
+        _, hj = ref_rg.rglru_step(hj, *(a[:, t] for a in (x, r, i)), lam)
         np.testing.assert_allclose(hs.numpy(), np.asarray(hj), atol=1e-6)
+
+
+_FIRST_CALL = """
+import numpy as np, torch
+from repro_torch.kernels.rglru_scan import ref
+torch.set_num_threads(8)
+rng = np.random.default_rng(7)
+x, r, i = (rng.normal(0, 1, (2, 96, 64)).astype(np.float32),
+           rng.uniform(0, 1, (2, 96, 64)).astype(np.float32),
+           rng.uniform(0, 1, (2, 96, 64)).astype(np.float32))
+lam = torch.from_numpy(rng.normal(0, 1, (64,)).astype(np.float32))
+ins = [torch.from_numpy(v) for v in (x, r, i)]
+first, second = ref.rglru_gates(*ins, lam), ref.rglru_gates(*ins, lam)
+print(all(torch.equal(u, v) for u, v in zip(first, second)))
+"""
+
+
+def test_rglru_plain_gates_first_call_equals_the_next():
+    """The plain gates on the CPU, a fresh process's first call against its
+    second, on 8 threads: bitwise equal.  PyTorch's CPU exp (MKL's vector
+    math in 2,048-element chunks over the threads) computed a chunk less
+    accurately on a process's first multi-threaded call unless the package
+    had made one call on one thread first; it showed in a few percent of
+    processes, so six run."""
+    env = dict(os.environ, PYTHONPATH=str(
+        pathlib.Path(__file__).resolve().parents[1] / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_CALL], env=env,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(6)]
+    outs = [p.communicate(timeout=120)[0].strip() for p in procs]
+    assert outs == ["True"] * 6, outs
+
+
+def _rglru_refusals(dev):
+    """(call, exception) pairs ``rglru`` refuses before any launch: shapes
+    everywhere; on the card also mixed or other dtypes and an initial state
+    that is not float32."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.zeros((2, 8, 16), **f32)
+    lam, h0 = torch.zeros(16, **f32), torch.zeros((2, 16), **f32)
+    bad = [((x, x[:, :4], x, lam), ValueError),
+           ((x, x, x, lam[:8]), ValueError),
+           ((x, x, x, lam, h0[:1]), ValueError),
+           ((x[0], x[0], x[0], lam), ValueError)]
+    if dev.type == "cuda":
+        bf = x.bfloat16()
+        bad += [((bf, x, x, lam), TypeError),
+                ((bf, bf, bf, lam), TypeError),
+                ((x, x, x, lam, h0.bfloat16()), TypeError),
+                ((x.half(), x.half(), x.half(), lam.half()), TypeError)]
+    return bad
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_rglru_refuses_shapes(k):
+    args, exc = _rglru_refusals(torch.device("cpu"))[k]
+    with pytest.raises(exc):
+        rg_ops.rglru(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -658,6 +749,10 @@ def test_wrappers_never_fall_back_to_plain(monkeypatch):
     a = torch.empty((1, 8, 4), device="meta")
     with pytest.raises(RuntimeError, match="nvcc"):
         rg_ops.linear_recurrence(a, torch.empty_like(a))
+    monkeypatch.setattr(rg_ref, "rglru", forbidden)
+    monkeypatch.setattr(rg_ref, "rglru_gates", forbidden)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        rg_ops.rglru(a, a, a, torch.empty(4, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -972,12 +1067,76 @@ def test_rglru_kernel_matches_plain_bitwise(case, init, cuda):
     ac, bc, hc = _to_t(a), _to_t(bb), _to_t(h0) if init else None
     want_h, want_last = rg_ref.linear_recurrence(ac, bc, hc)
     before = rg_ops.launches
+    by_entry = dict(rg_ops.launches_by_entry)
     h, h_last = rg_ops.linear_recurrence(
         ac.to(cuda), bc.to(cuda), hc.to(cuda) if init else None)
     torch.cuda.synchronize()
     assert rg_ops.launches == before + 1
+    assert rg_ops.launches_by_entry == {
+        **by_entry, "linear_recurrence_f32":
+        by_entry["linear_recurrence_f32"] + 1}
     torch.testing.assert_close(h.cpu(), want_h, rtol=0, atol=0)
     torch.testing.assert_close(h_last.cpu(), want_last, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True], ids=["zeros", "initial"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_CASES + [(4, 333, 4096)], ids=str)
+def test_rglru_fused_matches_plain_on_the_card(case, dtype, init, cuda,
+                                               monkeypatch):
+    """The fused entry (gates, recurrence and h's cast in one launch)
+    against the plain version run on the card, whose exp, log1p and sqrt
+    are the same CUDA math functions: bitwise.  Ragged w (50), l off the
+    32-step tile (100, 333), b > 1.  The plain version is never called."""
+    *xril, h0 = _rglru_gate_inputs(case, seed=3)
+    x, r, i, lam = (_as(a, dtype).to(cuda) for a in xril)
+    h0 = torch.from_numpy(h0).to(cuda) if init else None
+    want_h, want_last = rg_ref.rglru(x, r, i, lam, h0)
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("rglru", "rglru_gates", "linear_recurrence"):
+        monkeypatch.setattr(rg_ref, name, forbidden)
+    before = rg_ops.launches
+    by_entry = dict(rg_ops.launches_by_entry)
+    h, h_last = rg_ops.rglru(x, r, i, lam, h0)
+    torch.cuda.synchronize()
+    entry = rg_ops.RGLRU_ENTRIES[x.dtype]
+    assert rg_ops.launches == before + 1
+    assert rg_ops.launches_by_entry == {**by_entry,
+                                        entry: by_entry[entry] + 1}
+    assert h.dtype == x.dtype and h.shape == x.shape and h.is_contiguous()
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+    torch.testing.assert_close(h_last, want_last, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_rglru_sqrt_is_correctly_rounded_on_its_domain(cuda):
+    """The fused kernel's branch-free sqrt against __fsqrt_rn on every float
+    of the gate's domain [1e-12, 1] (3.4e8 values): no bit differs."""
+    fn = _build.entry("rglru_sqrt_mismatches", [
+        ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p,
+        ctypes.c_void_p])
+    lo, hi = (int(np.float32(v).view(np.uint32)) for v in (1e-12, 1.0))
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    assert fn(torch.cuda.current_device(), lo, hi, count.data_ptr(),
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert int(count) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(8))
+def test_rglru_refusals_launch_nothing(k, cuda):
+    args, exc = _rglru_refusals(cuda)[k]
+    before = rg_ops.launches
+    by_entry = dict(rg_ops.launches_by_entry)
+    with pytest.raises(exc):
+        rg_ops.rglru(*args)
+    assert rg_ops.launches == before
+    assert rg_ops.launches_by_entry == by_entry
 
 
 @pytest.mark.cuda
