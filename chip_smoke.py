@@ -82,7 +82,8 @@ Phases, each printed as one JSON line:
            with a window and with a cap, one serve-like request, empty key
            slots; for ps_apply
            a batch 40,000 deep with 2% sentinels in f64 and f32, and 4,096
-           entries all on one row).  The
+           entries all on one row; for topk_mag 4,096, 65,536 and 1,048,576
+           magnitudes: one block, and tiles with 4 and 8 merge passes).  The
            parameter-server kernels and rglru_scan are held bitwise (for
            vap_accum, NaN meets NaN; its payload is free; rglru_scan's fused
            entries against the plain version on the card, whose exp, log1p
@@ -115,7 +116,16 @@ Phases, each printed as one JSON line:
            float32: the float32 pipes), its TFLOP/s and its share of the
            bound; so does each ssd_scan case (bfloat16: three launches on
            the tensor cores, each float32 operand split into two bf16
-           products; float32: the float32 pipes).
+           products; float32: the float32 pipes).  topk_mag's cases
+           carry device_ms (its kernels' own device time per call, from the
+           profiler, every launch of every call seen), call_ms (the flush's
+           call: H2D, wrapper, D2H), library_device_ms (torch.argsort's
+           device time) and launches_per_call; its bound counts bytes only
+           (8n read, 8n written).  Each topk_mag case runs in a child
+           process of this script (--topk-case N SEED), in a fresh CUDA
+           context: late in a process that has profiled the paths,
+           torch.profiler loses a window's first device events and skews
+           the durations of the rest.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure raises: the exit code
@@ -145,6 +155,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12,
                   torch.bfloat16: 989e12}
 REPS = 20
+# topk_mag beyond the flush's lengths: one block, and tiles with 4 and 8
+# merge passes
+TOPK_STRESS_N = (4_096, 65_536, 1_048_576)
 
 
 def emit(obj) -> None:
@@ -251,7 +264,47 @@ def check_ps_apply(dev, R, C, N, dtype, seed, sentinels, one_row=False):
             "unique_rows": int(touched)}
 
 
-def check_topk_mag(dev, n, seed):
+def profiled_device_ms(fn, count, match=None, reps=REPS) -> float:
+    """Device time of one fn() call from torch.profiler: the device events
+    of ``reps`` calls (those whose name holds ``match``, else all) summed
+    and divided by ``reps``.  ``count(n_events)`` says whether the window
+    holds every event it should; the smoke fails if it does not."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and (match is None or match in e.name)]
+    if not count(len(us)):
+        raise AssertionError(f"profiler: {len(us)} device events matching "
+                             f"{match!r} in {reps} calls")
+    return sum(us) / reps / 1e3
+
+
+def check_topk_mag(n, seed):
+    """topk_mag's case, run by this script in a child process: in a process
+    that has profiled much (the paths), torch.profiler loses the first
+    device events of a later window and skews the durations of the rest,
+    so the device times are taken in a fresh CUDA context."""
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--topk-case", str(n), str(seed)],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise AssertionError(f"topk_mag n={n}: case failed:\n"
+                             f"{child.stderr[-4000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def topk_case(dev, n, seed):
+    """Bitwise against the plain version, then timed: ``ms`` (CUDA events
+    around a wrapper call), ``device_ms`` (the kernels' own device time per
+    call, from the profiler: every launch of every call must show),
+    ``call_ms`` (the flush's call: H2D, wrapper, D2H), the plain version on
+    the host and ``torch.argsort`` on the card (events and device time)."""
     from repro_torch.kernels.topk_mag import ops, ref
 
     rng = np.random.default_rng(seed)
@@ -265,16 +318,28 @@ def check_topk_mag(dev, n, seed):
     if not torch.equal(got.cpu(), want):
         raise AssertionError(f"topk_mag n={n}: kernel != plain")
 
+    per_call = ops.launches_per_call(n)
     ms = cuda_ms(lambda: ops.magnitude_order(m_d))
+    device_ms = profiled_device_ms(
+        lambda: ops.magnitude_order(m_d),
+        lambda c: c == REPS * per_call, match="topk_")
     plain_ms = host_ms(lambda: ref.magnitude_order(m_c))
     library_ms = cuda_ms(lambda: torch.argsort(-m_d, stable=True))
+    library_device_ms = profiled_device_ms(
+        lambda: torch.argsort(-m_d, stable=True),
+        lambda c: c > 0 and c % REPS == 0)
     # what the runtime's flush pays per call: H2D, kernel, D2H
     call_ms = host_ms(lambda: ops.magnitude_order(
         torch.from_numpy(m).to(dev)).cpu().numpy())
-    bound_ms, bound_by = bound(16 * n, n * n, torch.float64)
+    # bytes only: 8 n read, 8 n written; a sort's comparisons are far below
+    # the card's integer rate
+    bound_ms, bound_by = bound(16 * n, 0, torch.float64)
     return {"shape": f"mags {n} float64", "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "call_ms": call_ms}
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "call_ms": call_ms,
+            "launches_per_call": per_call}
 
 
 def _nan_aware_equal(got, want) -> bool:
@@ -1368,12 +1433,18 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve phase's weights and prompts")
+    ap.add_argument("--topk-case", type=int, nargs=2, metavar=("N", "SEED"),
+                    help="run only topk_mag's case at N magnitudes and print "
+                         "it (the smoke runs each in a child process)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's smoke test runs "
                  "only on the card")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
+    if args.topk_case:
+        emit(topk_case(torch.device("cuda"), *args.topk_case))
+        return
     from repro_torch.kernels import _build
 
     from repro_torch.data import synthetic_corpus
@@ -1407,7 +1478,7 @@ def main() -> None:
 
     # first the paths' shapes (the table's rows), then stress shapes: a
     # batch 40,000 rows deep with sentinels in f64 and f32, a batch of 4,096
-    # entries all on one row, 4,096 keys, and
+    # entries all on one row, topk_mag at TOPK_STRESS_N, and
     # for vap_accum a bfloat16 delta, an odd length on the vector and the
     # scalar path, and NaN / inf / -0.0 in delta
     apply_shapes, topk_lengths = path_shapes(calls)
@@ -1423,9 +1494,9 @@ def main() -> None:
            check_ps_apply(dev, R, C, 40_000, torch.float32, 11, True),
            check_ps_apply(dev, R, C, 4_096, torch.float64, 12, False,
                           one_row=True)],
-        "topk_mag": [check_topk_mag(dev, n, 20 + i)
+        "topk_mag": [check_topk_mag(n, 20 + i)
                      for i, n in enumerate(topk_lengths)]
-        + [check_topk_mag(dev, 4_096, 30)],
+        + [check_topk_mag(n, 30 + i) for i, n in enumerate(TOPK_STRESS_N)],
         "vap_accum": [check_vap_accum(dev, shape, torch.float32, 40 + i)
                       for i, shape in enumerate(vap_shapes)]
         + [check_vap_accum(dev, big, torch.bfloat16, 50),

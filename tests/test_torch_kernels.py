@@ -187,7 +187,23 @@ def _mags(kind, n, seed=0):
         return rng.integers(0, 4, size=n).astype(np.float64)
     if kind == "sub_f32":                    # distinct in f64, equal in f32
         return 1.0 + rng.integers(0, 5, size=n) * 2.0 ** -40
+    if kind == "equal":
+        return np.full(n, 2.5)
+    if kind == "nan":
+        return np.full(n, np.nan)
+    if kind == "special":                    # every key class, mixed
+        return rng.choice(_SPECIALS, size=n)
     raise ValueError(kind)
+
+
+# +-0, +-inf, NaNs of both signs and several payloads, subnormals, negative
+# values, exact ties and values equal in f32 but distinct in f64
+_SPECIALS = np.concatenate([
+    [0.0, -0.0, np.inf, -np.inf, 5e-324, -5e-324, 2.2e-308, -1.0, -3.5,
+     1.0, 1.0, 1.0 + 2.0 ** -40, 1.0 + 2.0 ** -41, 7.0, 1e308],
+    np.array([0x7FF8000000000000, 0xFFF8000000000000, 0x7FF0000000000001,
+              0xFFF0000000000123, 0x7FFFFFFFFFFFFFFF, 0xFFFFFFFFFFFFFFFF],
+             dtype=np.uint64).view(np.float64)])
 
 
 _TOPK_CASES = [("random", 2), ("random", 7), ("random", 300), ("ties", 2),
@@ -220,6 +236,51 @@ def test_topk_mag_prefix_and_nan_order(monkeypatch):
         topk_ops.magnitude_order(torch.from_numpy(m), k=9)
     with pytest.raises(TypeError):
         topk_ops.magnitude_order(torch.from_numpy(m).float())
+
+
+def _by_sort_keys(m):
+    """The order the kernel's keys give: (key, index) pairs ascending."""
+    keys = topk_ref.sort_keys(torch.from_numpy(m)).numpy().view(np.uint64)
+    return np.lexsort((np.arange(m.shape[0]), keys))
+
+
+_KEY_CASES = ([("specials", _SPECIALS.size)]
+              + [(kind, n) for kind in ("random", "ties", "sub_f32", "special")
+                 for n in (1, 2, 33, 4096)])
+
+
+@pytest.mark.parametrize("kind,n", _KEY_CASES, ids=lambda v: str(v))
+def test_topk_mag_sort_keys_order_like_argsort(kind, n):
+    """The CUDA kernel sorts (sort_keys(m), index) pairs; that order must be
+    np.argsort(-m, kind="stable") bitwise, and so must the plain version."""
+    m = _SPECIALS.copy() if kind == "specials" else _mags(kind, n, seed=n)
+    if kind == "random":
+        m = m * np.where(np.arange(n) % 3 == 0, -1.0, 1.0)     # negatives
+    want = np.argsort(-m, kind="stable")
+    np.testing.assert_array_equal(_by_sort_keys(m), want)
+    np.testing.assert_array_equal(
+        topk_ref.magnitude_order(torch.from_numpy(m)).numpy(), want)
+
+
+def test_topk_mag_refuses_2_31_magnitudes_before_launch():
+    """Indices travel as uint32: 2**31 magnitudes raise ValueError before
+    anything is built or launched (a meta tensor: no memory behind it)."""
+    before = topk_ops.launches
+    with pytest.raises(ValueError, match="32-bit"):
+        topk_ops.magnitude_order(
+            torch.empty(2 ** 31, dtype=torch.float64, device="meta"))
+    assert topk_ops.launches == before
+
+
+def test_topk_mag_launches_per_call():
+    """One launch up to TILE magnitudes, then one tile sort plus
+    ceil(log2(tiles)) merge passes; none when nothing is asked for."""
+    t = topk_ops.TILE
+    assert [topk_ops.launches_per_call(n) for n in
+            (0, 1, 2, 32, 33, t, t + 1, 2 * t, 2 * t + 1, 4 * t,
+             (1 << 20) + 5)] == [0, 1, 1, 1, 1, 1, 2, 2, 3, 3,
+                                 1 + ((1 << 20) // t).bit_length()]
+    assert topk_ops.launches_per_call(5, k=0) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -818,20 +879,47 @@ def test_ps_apply_kernel_rejects_bad_input(cuda):
     assert not dense.any()
 
 
+# every regime's edges: one warp (n <= 32), one block (n <= TILE = 4,096),
+# tiles and merge passes beyond; 1,024 and 16,384 are edges of other tile
+# sizes, kept as plain sizes
+_TOPK_CARD_N = [1, 2, 3, 31, 32, 33, 1023, 1024, 1025, 4095, 4096, 4097,
+                16_383, 16_384, 16_385, 3 * 16_384 + 7, (1 << 20) + 5]
+_TOPK_CARD_CASES = _TOPK_CASES + [("ties", 4096), ("random", 1)] + [
+    (kind, n) for n in _TOPK_CARD_N
+    for kind in ("random", "ties", "sub_f32", "equal", "nan", "special")
+    if (kind, n) not in _TOPK_CASES + [("ties", 4096), ("random", 1)]]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,n", _TOPK_CASES + [("ties", 4096),
-                                                  ("random", 1)],
-                         ids=lambda v: str(v))
+@pytest.mark.parametrize("kind,n", _TOPK_CARD_CASES, ids=lambda v: str(v))
 def test_topk_mag_kernel_matches_plain(kind, n, cuda):
     m = _mags(kind, n, seed=3)
-    if n > 4:
+    if n > 4 and kind not in ("equal", "nan"):
         m[n // 3] = np.nan                   # NaN sorts last
     want = topk_ref.magnitude_order(torch.from_numpy(m))
     got = topk_ops.magnitude_order(torch.from_numpy(m).to(cuda))
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     k = max(n // 2, 1)
     got_k = topk_ops.magnitude_order(torch.from_numpy(m).to(cuda), k=k)
+    assert got_k.shape == (k,)
     np.testing.assert_array_equal(got_k.cpu().numpy(), want.numpy()[:k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 33, 4096, 4097, 3 * 16_384 + 7])
+def test_topk_mag_launch_count(n, cuda):
+    """launches grows by launches_per_call: 1 up to TILE (the flush's n = 2
+    among them), 1 + ceil(log2(tiles)) beyond; a k = 0 call launches
+    nothing."""
+    m = torch.from_numpy(_mags("random", n, seed=5)).to(cuda)
+    before = topk_ops.launches
+    topk_ops.magnitude_order(m)
+    torch.cuda.synchronize()
+    tiles = -(-n // topk_ops.TILE)
+    want = 1 if n <= topk_ops.TILE else 1 + (tiles - 1).bit_length()
+    assert topk_ops.launches - before == want == topk_ops.launches_per_call(n)
+    assert topk_ops.magnitude_order(m, k=0).numel() == 0
+    assert topk_ops.launches - before == want
 
 
 _VAP_CARD_N = [0, 1, 3, 64, 8192, 8193, 100_000, (1 << 20) + 5]
