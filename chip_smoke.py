@@ -20,6 +20,30 @@ Phases, each printed as one JSON line:
            master == x0 + sum(updates) exactly, every token counted once,
            topic == word_topic.sum(0), a finite rising log-likelihood, and
            both kernels launched.
+  wire     the lda phase's run on the runtime's wire transports: the same
+           corpus, V 50,000 x K 1,000 f64 masters on the card, 4 workers as
+           4 forked client processes (threads_per_process=1), 2 shards in
+           this process.  Main run: transport="shm" with the zero-copy wire,
+           ssp(1), 3 clocks, built from apps/lda.py's _init_states and
+           _make_update_fn and PSRuntime directly (run_lda records its
+           log-likelihood inside client 0, so none reaches this process);
+           the launch counters set to 0 just before start() and read after
+           wait(), torch.profiler entered once the clients are forked (the
+           fork happens outside it).  Prints wall and clock times, the
+           device's busy and idle share, ps_apply's launches and device
+           seconds (and its kernel's events in the profile, which must match
+           its launches for the device time to be whole), H2D and D2H copy
+           seconds, peak device memory, the rings' capacity, /dev/shm's size
+           and the host's ISA, and the lda phase's wall beside its own.
+           Checks: no violations, parts sent = parts applied, the master and
+           every shipped cache exactly x0 + sum(updates), word_topic
+           non-negative and summing to the corpus's tokens, topic ==
+           word_topic.sum(0), master blocks f64 on the card, ps_apply
+           launched and topk_mag not (the clients order their flushes in
+           host numpy and never touch the card).  Then the bitwise check:
+           bsp with barrier_reads, 2 clocks, same seed, on shm (zero-copy),
+           tcp and queue: the three final masters must be bitwise equal
+           (counts in f64, each clock reading exactly the earlier clocks).
   lda_spmd the second path: run_lda_spmd(device="cuda") on the same corpus,
            4 replicas of the 50,000 x 1,000 and 1,000 float32 tables stacked
            on the card, 3 clocks under cvap(2, v), the vap_accum launch
@@ -137,6 +161,7 @@ import contextlib
 import ctypes
 import json
 import os
+import platform
 import re
 import statistics
 import subprocess
@@ -999,7 +1024,146 @@ def run_lda_phase(dev, corpus, corpus_s):
                                                 launches["ps_apply"]),
           "rows_per_apply": rows_applied / launches["ps_apply"],
           "log_likelihood": lls, "violations": 0, "master_exact": True})
-    return launches, calls
+    return launches, calls, wall_s
+
+
+WIRE_BSP_CLOCKS = 2
+
+
+def _wire_runtime(dev, corpus, policy, transport, **kw):
+    """The lda phase's configuration as a PSRuntime with its update_fn,
+    states drawn afresh from seed 0 (run_lda's defaults: alpha 0.1, beta
+    0.01)."""
+    from repro_torch.apps import lda
+    from repro_torch.runtime import PSRuntime, RuntimeConfig
+
+    _, states, wt0, tc0 = lda._init_states(corpus, N_TOPICS, N_WORKERS, 0)
+    fn = lda._make_update_fn(states, corpus.vocab_size, 0.1, 0.01)
+    rt = PSRuntime(RuntimeConfig(
+        N_WORKERS, policy, {"word_topic": wt0, "topic": tc0},
+        n_shards=N_SHARDS, threads_per_process=1, seed=0,
+        transport=transport, device=dev, **kw))
+    return rt, fn
+
+
+def _check_lda_master(rt, corpus, what):
+    """The final state the lda phase checks, held exactly: master and every
+    shipped cache x0 + sum(updates), every token counted once, topic ==
+    word_topic.sum(0), blocks f64 on the card.  Returns the two masters."""
+    for s in rt.shards:
+        for key, block in s.dense.items():
+            if not (block.is_cuda and block.dtype == torch.float64):
+                raise AssertionError(f"{what}: {key} master block is "
+                                     f"{block.dtype} on {block.device}")
+    out = {}
+    for key in ("word_topic", "topic"):
+        out[key] = rt.master_value(key)
+        want = rt.expected_value(key)
+        if not np.array_equal(out[key], want):
+            raise AssertionError(f"{what}: master {key} != x0 + sum(updates)")
+        for p in range(rt.n_proc):
+            if not np.array_equal(rt.view(p)[key], want):
+                raise AssertionError(f"{what}: process {p}'s {key} != "
+                                     f"x0 + sum(updates)")
+    wt, tc = out["word_topic"], out["topic"]
+    if wt.shape != (VOCAB, N_TOPICS) or wt.sum() != corpus.n_tokens \
+            or (wt < 0).any():
+        raise AssertionError(f"{what}: word_topic {wt.shape} holds "
+                             f"{wt.sum()} counts for {corpus.n_tokens} tokens")
+    if not np.array_equal(tc, wt.sum(0)):
+        raise AssertionError(f"{what}: topic != word_topic.sum(0)")
+    return out
+
+
+def run_wire_phase(dev, corpus, lda_wall_s):
+    """The lda phase's run with forked clients over the shm rings (the
+    zero-copy wire), then the bitwise bsp check across shm, tcp and queue.
+    Nothing here is caught: a failed child or check fails the smoke."""
+    from repro_torch.core import policies
+
+    shm = os.statvfs("/dev/shm")
+    shm_bytes = {"total": shm.f_frsize * shm.f_blocks,
+                 "avail": shm.f_frsize * shm.f_bavail}
+    rt, fn = _wire_runtime(dev, corpus, policies.ssp(1), "shm",
+                           zero_copy=True)
+    with path_run(dev) as run:
+        t = time.perf_counter()
+        rt.start(fn, N_CLOCKS, timeout=300)
+        # the clients are forked by now: profile this process only
+        t_prof = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            stats = rt.wait()
+            torch.cuda.synchronize()
+        end = time.perf_counter()
+    wall_s, prof_s = end - t, end - t_prof
+    peak = torch.cuda.max_memory_allocated(dev)     # before the bsp runs
+    launches = run["launches"]
+    device_s = device_seconds(prof)
+    busy_s = sum(device_s.values())
+    if stats.violations:
+        raise AssertionError(f"wire: violations {stats.violations[:5]}")
+    applied = sum(int(s.applied_parts.sum()) for s in rt.shards)
+    sent = int(rt._parts_sent.sum())
+    if applied != sent:
+        raise AssertionError(f"wire: parts sent {sent} != applied {applied}")
+    _check_lda_master(rt, corpus, "wire shm")
+    if launches["ps_apply"] <= 0 or launches["topk_mag"] != 0:
+        raise AssertionError(f"wire: ps_apply launched {launches['ps_apply']}"
+                             f" times, topk_mag {launches['topk_mag']} (the "
+                             f"forked clients must order in host numpy)")
+    in_profile = sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and PS_APPLY_KERNEL.match(_short(e.name)))
+    ct = [0.0] + list(stats.clock_times)
+
+    # bitwise: bsp with barrier_reads on the three transports, same seed
+    masters, walls = {}, {}
+    for transport, kw in (("shm", {"zero_copy": True}), ("tcp", {}),
+                          ("queue", {})):
+        brt, bfn = _wire_runtime(dev, corpus, policies.bsp(), transport,
+                                 barrier_reads=True, **kw)
+        t = time.perf_counter()
+        bst = brt.run(bfn, WIRE_BSP_CLOCKS, timeout=300)
+        walls[transport] = time.perf_counter() - t
+        if bst.violations:
+            raise AssertionError(f"wire bsp {transport}: violations "
+                                 f"{bst.violations[:5]}")
+        masters[transport] = _check_lda_master(brt, corpus,
+                                               f"wire bsp {transport}")
+        del brt
+    for transport in ("tcp", "queue"):
+        for key in ("word_topic", "topic"):
+            if not np.array_equal(masters[transport][key],
+                                  masters["shm"][key]):
+                raise AssertionError(f"wire bsp: {transport}'s {key} master "
+                                     f"differs from shm's")
+    emit({"phase": "wire", "transport": "shm", "zero_copy": True,
+          "n_docs": N_DOCS, "vocab": VOCAB, "n_topics": N_TOPICS,
+          "tokens": corpus.n_tokens, "workers": N_WORKERS,
+          "client_processes": rt.n_proc, "shards": N_SHARDS,
+          "policy": "ssp(1)", "clocks": N_CLOCKS, "reduced": REDUCED,
+          "wall_s": wall_s, "clock_s": [b - a for a, b in zip(ct, ct[1:])],
+          "lda_phase_wall_s": lda_wall_s, "profiled_s": prof_s,
+          "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / prof_s,
+          "device_s_by_name": dict(sorted(device_s.items(),
+                                          key=lambda kv: -kv[1])[:8]),
+          "h2d_s": sum(v for k, v in device_s.items() if "HtoD" in k),
+          "d2h_s": sum(v for k, v in device_s.items() if "DtoH" in k),
+          "peak_device_bytes": peak,
+          "launches": launches,
+          "ps_apply_device_s": ps_apply_seconds(device_s,
+                                                launches["ps_apply"]),
+          "ps_apply_kernels_in_profile": in_profile,
+          "parts_sent": sent, "parts_applied": applied,
+          "ring_capacity_bytes": 2 * rt._shm_max_frame,
+          "rings": 2 * rt.n_proc * N_SHARDS, "dev_shm_bytes": shm_bytes,
+          "machine": platform.machine(), "violations": 0,
+          "master_exact": True,
+          "bsp_bitwise": {"clocks": WIRE_BSP_CLOCKS, "barrier_reads": True,
+                          "transports": list(masters), "wall_s": walls,
+                          "equal": True}})
+    return launches
 
 
 SPMD_STALENESS = 2
@@ -1467,7 +1631,8 @@ def main() -> None:
     corpus = synthetic_corpus(n_docs=N_DOCS, vocab_size=VOCAB,
                               n_topics=TRUE_TOPICS, doc_len=DOC_LEN, seed=0)
     corpus_s = time.perf_counter() - t
-    launches, calls = run_lda_phase(dev, corpus, corpus_s)
+    launches, calls, lda_wall_s = run_lda_phase(dev, corpus, corpus_s)
+    wire_launches = run_wire_phase(dev, corpus, lda_wall_s)
     spmd_launches, vap_shapes = run_lda_spmd_phase(dev, corpus)
     launches.update(spmd_launches)
     app_launches, app_calls = run_apps_phase(dev)
@@ -1558,6 +1723,7 @@ def main() -> None:
         main_case = cases[name][0]          # the main path's shape
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
+                      "wire_launches": wire_launches[name],
                       **{k: main_case[k] for k in keys}})
     # rglru_scan's entries: the fused one per dtype at the serve path's
     # calls, the bare recurrence at the serve shape (off the path); launches:

@@ -6,12 +6,13 @@ The single construction surface of :class:`~repro_torch.runtime.PSRuntime`:
 
     rt = PSRuntime(RuntimeConfig(4, ssp(3), x0))               # on the card
     rt = PSRuntime(RuntimeConfig(4, ssp(3), x0, device="cpu"))  # on the host
+    rt = PSRuntime(RuntimeConfig(4, ssp(3), x0, transport="shm"))  # forked
 
 The fields mirror the JAX package's ``RuntimeConfig`` so call sites carry
-over.  The tiers this port does not have yet (wire transports, snapshots,
-elastic membership, the write-ahead log, tracing, the zero-copy wire) keep
-their fields, and setting one raises :class:`NotImplementedError` naming the
-ROADMAP item that ports it, instead of being silently ignored.
+over.  The tiers this port does not have yet (snapshots, elastic
+membership, the write-ahead log, tracing) keep their fields, and setting one
+raises :class:`NotImplementedError` naming the ROADMAP item that ports it,
+instead of being silently ignored.
 """
 from __future__ import annotations
 
@@ -25,14 +26,12 @@ TRANSPORTS: Tuple[str, ...] = ("queue", "tcp", "shm", "proc")
 
 # field -> (value the port runs with, ROADMAP item that ports the rest)
 _NOT_PORTED = {
-    "transport": ("queue", "Queue 1 item 2: wire transports (shm, tcp)"),
     "restore_from": (None, "Queue 1 item 5: snapshots and WAL recovery"),
     "snapshot_every": (0, "Queue 1 item 5: snapshots and WAL recovery"),
     "snapshot_dir": (None, "Queue 1 item 5: snapshots and WAL recovery"),
     "snapshot_keep_last": (0, "Queue 1 item 5: snapshots and WAL recovery"),
     "max_shards": (None, "Queue 1 item 5: elastic membership"),
     "membership_plan": (None, "Queue 1 item 5: elastic membership"),
-    "zero_copy": (None, "Queue 1 item 2: the shm zero-copy wire"),
     "wal_dir": (None, "Queue 1 item 5: write-ahead log"),
     "wal_fsync": (None, "Queue 1 item 5: write-ahead log"),
     "wal_segment_bytes": (1 << 22, "Queue 1 item 5: write-ahead log"),
@@ -50,6 +49,12 @@ class RuntimeConfig:
 
     ``device`` is where the shards' master blocks live and where the shard
     apply and the send order run: ``"cuda"`` (the default) or ``"cpu"``.
+    Under a wire transport (``"shm"``, its alias ``"proc"``, ``"tcp"``) the
+    clients are forked processes that stay on the host: the shards, and the
+    apply, stay on ``device`` in the parent, and each client orders its
+    flushes in host numpy.  ``zero_copy`` (None or True: on) picks the shm
+    transport's raw row-block wire with in-ring views over pickle-5 frames;
+    the other transports ignore it.
     The reference's ``ps_kernels`` flag is not carried over, because on the
     port the device decides: on CUDA the kernels always run, on the CPU
     their plain PyTorch versions do.  Asking for CUDA on a host without a

@@ -18,6 +18,11 @@ Message flow (client process p, server shard s):
                          every peer acked an update part — the origin
                          worker's unsynchronized accumulator may shrink
 
+Multi-process quiesce (forked clients over a wire transport):
+
+    p -> s : ProcDoneMsg  process p finished all its clocks
+    s -> p : ShardFinMsg  shard s has drained: nothing further follows
+
 Messages carry host numpy arrays: the shard copies a part's rows and delta
 to the device only to apply them to its master block.
 """
@@ -103,6 +108,26 @@ class FullyDelivered:
     key: str
     rows: np.ndarray
     delta: np.ndarray
+    shard: int
+    seq: int = -1
+
+
+@dataclass
+class ProcDoneMsg:
+    """Client process finished all its clocks: no more Update/Clock msgs
+    (acks for in-flight deliveries may still follow).  Multi-process quiesce,
+    leg 1: every shard counts these."""
+    process: int
+    epoch: int = 0           # client's membership epoch at send
+    seq: int = -1
+
+
+@dataclass
+class ShardFinMsg:
+    """Shard has seen ProcDone from every process and drained its pending
+    and queued deliveries: nothing further will be sent on this channel.
+    Multi-process quiesce, leg 2: a client that has collected the fin of
+    every shard holds its complete final state."""
     shard: int
     seq: int = -1
 

@@ -30,9 +30,33 @@ numpy views).  The device holds the shard master blocks and the kernels'
 operands.  ``RuntimeConfig(device=...)`` picks it: ``"cuda"`` (default) runs
 both kernels on the card, ``"cpu"`` runs their plain PyTorch versions.
 
-Every client process is a thread group inside this Python process and
-channels are in-process FIFO queues (``transport="queue"``); the wire
-transports with forked clients are ROADMAP Queue 1 item 2.
+Transports (``transport=``):
+
+  * ``"queue"`` (default) — every client process is a *thread group* inside
+    this Python process and channels are in-process FIFO queues;
+  * ``"tcp"`` / ``"shm"`` — every client process is a **forked OS process**
+    and channels run over the wire backends of
+    :mod:`repro_torch.runtime.transport` (loopback sockets / shared-memory
+    rings, the raw zero-copy wire unless ``zero_copy=False``), with per-row
+    updates coalesced into multi-row frames.  ``"proc"`` is an alias for
+    ``"shm"``.  The server shards stay in this process with their master
+    blocks on the device, so every apply still goes through ``ps_apply``;
+    workers escape the GIL.
+
+Forked clients and the device: the fork happens after the master blocks are
+on the card, so a child must never touch CUDA (a forked process cannot
+re-initialize it).  The child's worker flow is host numpy only: it orders
+each flush with ``np.argsort(-mags, kind="stable")``, the reference's own
+child order, which is the ``topk_mag`` kernel's contract (its plain version
+is held equal to it in the tests).  So on the wire transports ``topk_mag``
+launches no time by design; on ``"queue"`` it orders every flush.
+
+Multi-process quiesce replaces the in-flight counter: clients send
+``ProcDone`` after their last clock, shards answer ``ShardFin`` once their
+delivery state has drained, and each child then ships its final cache,
+stats, and update totals to the parent over a pipe, where they are merged
+and checked exactly like the threaded run.  A child that fails ships its
+error, and the parent's ``wait()`` raises it.
 
 The simulator stays the executable specification: given the same
 ``update_fn`` both produce the same set of updates, so the quiesced runtime
@@ -51,7 +75,10 @@ from __future__ import annotations
 
 import itertools
 import math
+import multiprocessing
+import os
 import queue
+import sys
 import threading
 import time
 from typing import Callable, Dict, List, Sequence, Tuple
@@ -66,15 +93,17 @@ from repro_torch.kernels import resolve_device
 from repro_torch.kernels.topk_mag import ops as topk_ops
 from repro_torch.runtime.config import RuntimeConfig
 from repro_torch.runtime.membership import Partition
+from repro_torch.runtime import transport as T
 from repro_torch.runtime.messages import (SHUTDOWN, AckBatchMsg, Channel,
                                           ClockMarker, ClockMsg, DeliverMsg,
-                                          FullyDelivered, UpdateMsg,
+                                          FullyDelivered, ProcDoneMsg,
+                                          ShardFinMsg, UpdateMsg,
                                           group_by_channel, pump_inbox)
 from repro_torch.runtime.metrics import (LOAD_BLOCK_CLOCK, LOAD_BLOCK_VALUE,
                                          LOAD_LEN, LOAD_UPDATES)
 from repro_torch.runtime.shard import ServerShard
-from repro_torch.runtime.transport import (FifoAssert, materialize_msg,
-                                           release_msgs)
+
+_PROC_ALIAS = "shm"          # what transport="proc" resolves to
 
 
 def _ack_batches(pairs: List[Tuple[Channel, int]], pid: int
@@ -105,7 +134,10 @@ class ClientProcess:
     """A client process: shared cache + comm thread for its worker threads.
 
     All of it is host numpy state: the cache the apps read and the
-    per-worker unsynchronized accumulators.
+    per-worker unsynchronized accumulators.  Identical in both regimes —
+    under ``transport="queue"`` it lives in the main interpreter; under a
+    wire transport it lives in a forked child and ``rt`` is the child's
+    :class:`_ClientHost`.
     """
 
     def __init__(self, rt, pid: int):
@@ -132,7 +164,7 @@ class ClientProcess:
         self.m_block_clock = 0.0
         self.m_block_value = 0.0
         self.inbox: queue.Queue = queue.Queue()
-        self._fifo = FifoAssert()             # per sender shard
+        self._fifo = T.FifoAssert()           # per sender shard
         self._acks: List[Tuple[Channel, int]] = []      # (shard chan, uid)
         self.thread = threading.Thread(
             target=self._loop, name=f"ps-proc-{pid}", daemon=True)
@@ -167,7 +199,13 @@ class ClientProcess:
                 except BaseException as e:
                     rt._record_error(e)
             self.cond.notify_all()
-        release_msgs(batch)
+        # zero-copy discipline: every view-backed delivery was either
+        # applied above or materialized into `staged`, so drop the frame
+        # pins NOW — before the blocking ack sends below.  Holding pins
+        # across a wire write could deadlock two full rings against each
+        # other (the shard may be blocked writing into our ring, waiting
+        # for exactly this release to free its own inbound ring).
+        T.release_msgs(batch)
         # acks leave after the lock is dropped, coalesced into ONE AckBatch
         # message per (client, shard, flush)
         acks, self._acks = self._acks, []
@@ -189,8 +227,8 @@ class ClientProcess:
                               f"{self.pid} {err}")
         if isinstance(msg, DeliverMsg):
             if rt.barrier_reads and msg.ts >= self.cur_period():
-                # retained past this apply cycle
-                self.staged.append(materialize_msg(msg))
+                # retained past this apply cycle: copy out of the ring
+                self.staged.append(T.materialize_msg(msg))
             else:
                 self._apply_delivery(msg)
                 # acks only feed the unsynced accounting (VAP value bound /
@@ -211,6 +249,8 @@ class ClientProcess:
             # *other* orderings never wedges a worker.
             acc = self.unsynced[msg.worker][msg.key]
             acc[msg.rows] -= msg.delta
+        elif isinstance(msg, ShardFinMsg):
+            rt._on_shard_fin(msg)
         else:
             raise TypeError(f"proc {self.pid}: unexpected message {msg!r}")
 
@@ -258,7 +298,10 @@ class RuntimeViewHandle:
 
 
 class _WorkerFlowMixin:
-    """The client-side worker flow.  Subclasses provide the state surface:
+    """The client-side worker flow, shared by the in-process runtime
+    (:class:`PSRuntime`, transport="queue") and the forked per-process host
+    (:class:`_ClientHost`, wire transports).  Subclasses provide the state
+    surface:
     ``procs``, ``policy``, ``stats``, ``_slock``, ``_total``, ``_chan_ps``,
     ``_send``/``_send_many``/``_msg_done``, ``_next_uid``, ``_check_alive``,
     ``_violation``, ``_record_error``, ``_note_global_clock``, ``device``
@@ -308,7 +351,8 @@ class _WorkerFlowMixin:
 
     def _magnitude_order(self, mags: np.ndarray) -> np.ndarray:
         """Largest-|Δ|-first send order (paper §4.2), stable on ties: the
-        ``topk_mag`` kernel on the card, its plain version on the CPU."""
+        ``topk_mag`` kernel on the card, its plain version on the CPU (a
+        forked client overrides this with host numpy)."""
         order = topk_ops.magnitude_order(torch.from_numpy(mags).to(self.device))
         return order.cpu().numpy()
 
@@ -479,6 +523,10 @@ class PSRuntime(_WorkerFlowMixin):
     simulated.  ``NetworkModel`` / ``compute_time`` / ``straggler`` have no
     analogue here: latency and skew are real.
 
+    ``transport="queue"`` runs worker *threads* in this process;
+    ``"tcp"``/``"shm"``/``"proc"`` fork one OS process per client process
+    and carry the same message protocol over the wire (module docstring).
+
     Built from a :class:`~repro_torch.runtime.config.RuntimeConfig`; the
     shards' master blocks live on ``config.device``.
     """
@@ -490,6 +538,12 @@ class PSRuntime(_WorkerFlowMixin):
         cfg = config
         self.config = cfg
         self.device = resolve_device(cfg.device)
+        self.transport_kind = (_PROC_ALIAS if cfg.transport == "proc"
+                               else cfg.transport)
+        self._proc_mode = self.transport_kind != "queue"
+        # zero_copy: raw RowCodec frames + in-ring view decode on the shm
+        # transport (None -> on; other transports ignore it)
+        self.zero_copy = True if cfg.zero_copy is None else bool(cfg.zero_copy)
         self.P = cfg.n_workers
         self.tpp = cfg.threads_per_process
         self.n_proc = cfg.n_workers // cfg.threads_per_process
@@ -529,14 +583,26 @@ class PSRuntime(_WorkerFlowMixin):
         self.shards = [ServerShard(self, s, x0_dev)
                        for s in range(self.n_shards)]
         del x0_dev                            # the shards hold their blocks
-        self.procs = [ClientProcess(self, p) for p in range(self.n_proc)]
-        # FIFO channels: client process -> shard, and back
-        self._chan_ps = [[Channel(f"p{p}->s{s}", self.shards[s].inbox)
-                          for s in range(self.n_shards)]
-                         for p in range(self.n_proc)]
-        self._chan_sp = [[Channel(f"s{s}->p{p}", self.procs[p].inbox)
-                          for p in range(self.n_proc)]
-                         for s in range(self.n_shards)]
+        if self._proc_mode:
+            self.procs: List[ClientProcess] = []
+            self._chan_ps = None              # lives in the children
+            self._chan_sp: List[List] = []    # wire channels, built in start()
+            self._children: List[multiprocessing.Process] = []
+            self._pipes: List[int] = []       # read ends, one per client
+            self._readers: List[threading.Thread] = []
+            self._transport = None
+            self._conns: Dict[Tuple[int, int], T.TcpConn] = {}
+            self._reader_stop = threading.Event()
+            self._final_caches: Dict[int, Dict[str, np.ndarray]] = {}
+        else:
+            self.procs = [ClientProcess(self, p) for p in range(self.n_proc)]
+            # FIFO channels: client process -> shard, and back
+            self._chan_ps = [[Channel(f"p{p}->s{s}", self.shards[s].inbox)
+                              for s in range(self.n_shards)]
+                             for p in range(self.n_proc)]
+            self._chan_sp = [[Channel(f"s{s}->p{p}", self.procs[p].inbox)
+                              for p in range(self.n_proc)]
+                             for s in range(self.n_shards)]
 
         self.update_fn: Callable = None
         self.n_clocks = 0
@@ -552,18 +618,22 @@ class PSRuntime(_WorkerFlowMixin):
         return next(self._uid)
 
     def _send(self, chan, msg) -> None:
-        with self._qcond:
-            self._inflight += 1
+        if not self._proc_mode:
+            with self._qcond:
+                self._inflight += 1
         chan.send(msg)
 
     def _send_many(self, chan, msgs: list) -> None:
         if not msgs:
             return
-        with self._qcond:
-            self._inflight += len(msgs)
+        if not self._proc_mode:
+            with self._qcond:
+                self._inflight += len(msgs)
         chan.send_many(msgs)
 
     def _msg_done(self) -> None:
+        if self._proc_mode:
+            return
         with self._qcond:
             self._inflight -= 1
             if self._inflight == 0:
@@ -588,7 +658,8 @@ class PSRuntime(_WorkerFlowMixin):
     # ---------------------------------------------------------------- running
     def start(self, update_fn: Callable, n_clocks: int,
               timeout: float = 120.0) -> None:
-        """Launch shard/comm/worker threads; pair with :meth:`wait`."""
+        """Launch shard/comm/worker threads (and, under a wire transport,
+        the client OS processes); pair with :meth:`wait`."""
         if self._started:
             raise RuntimeError("runtime already started")
         self._started = True
@@ -596,6 +667,9 @@ class PSRuntime(_WorkerFlowMixin):
         self.n_clocks = n_clocks
         self._deadline = time.monotonic() + timeout
         self._t0 = time.monotonic()
+        if self._proc_mode:
+            self._start_proc()
+            return
         for s in self.shards:
             s.thread.start()
         for p in self.procs:
@@ -606,10 +680,84 @@ class PSRuntime(_WorkerFlowMixin):
         for t in self._workers:
             t.start()
 
+    # ------------------------------------------------------- proc-mode start
+    def _start_proc(self) -> None:
+        """Build the wires, fork one client per process, then start the
+        parent's reader and shard threads.  The fork comes first: no thread
+        of this runtime is running while it forks."""
+        ctx = multiprocessing.get_context("fork")
+        if self.transport_kind == "tcp":
+            self._transport = T.TcpTransport(self.n_proc, self.n_shards)
+            self._transport.listen()
+        else:
+            # ring must hold the largest possible single row part (a whole
+            # key) with frame overhead; batches above half the ring split
+            # into multiple frames (WireChannel max_frame)
+            max_part = max(v.nbytes + 8 * v.shape[0] + 4096
+                           for v in self._x0.values())
+            cap = max(1 << 20, 8 * max_part)
+            self._shm_max_frame = cap // 2
+            self._transport = T.ShmTransport(self.n_proc, self.n_shards,
+                                             capacity=cap)
+        for pid in range(self.n_proc):
+            recv, send = os.pipe()
+            child = ctx.Process(target=_client_child_main,
+                                args=(self, pid, send),
+                                name=f"ps-client-{pid}", daemon=True)
+            child.start()
+            os.close(send)                     # parent keeps the read end
+            self._children.append(child)
+            self._pipes.append(recv)
+
+        # parent side: route each client->shard stream into the shard inbox,
+        # hand each shard a write channel back to every client
+        self._chan_sp = [[None] * self.n_proc for _ in range(self.n_shards)]
+        if self.transport_kind == "tcp":
+            self._conns = self._transport.accept_all(self._deadline)
+            for (p, s), conn in self._conns.items():
+                self._chan_sp[s][p] = T.WireChannel(f"s{s}->p{p}", conn.write)
+                self._readers.append(T.start_reader(
+                    f"rx-p{p}s{s}", conn.read_chunk, self.shards[s].inbox,
+                    self._record_error))
+        else:
+            codec = (T.RowCodec(list(self._x0.keys())) if self.zero_copy
+                     else None)
+            for (p, s), edge in self._transport.edges.items():
+                if codec is not None:
+                    # zero-copy wire: raw row-block frames, doorbell batched
+                    # to one wake per flush (per frame only when a batch
+                    # splits), and an in-ring view reader on the receive side
+                    bell_w = edge.s2c_bell[1]
+                    self._chan_sp[s][p] = T.WireChannel(
+                        f"s{s}->p{p}",
+                        T.ring_parts_writer(edge.s2c, self._deadline),
+                        max_frame=self._shm_max_frame, codec=codec,
+                        on_flush=lambda w=bell_w: T.ShmEdge.ring_bell(w))
+                    self._readers.append(T.start_view_reader(
+                        f"rx-p{p}s{s}",
+                        T.RingViewReader(edge.c2s, codec, edge.c2s_bell[0],
+                                         self._reader_stop),
+                        self.shards[s].inbox, self._record_error))
+                else:
+                    self._chan_sp[s][p] = T.WireChannel(
+                        f"s{s}->p{p}",
+                        T.ring_writer(edge.s2c, edge.s2c_bell[1],
+                                      self._deadline),
+                        max_frame=self._shm_max_frame)
+                    self._readers.append(T.start_reader(
+                        f"rx-p{p}s{s}",
+                        T.ring_reader(edge.c2s, edge.c2s_bell[0],
+                                      self._reader_stop),
+                        self.shards[s].inbox, self._record_error))
+        for s in self.shards:
+            s.thread.start()
+
     def wait(self) -> RunStats:
         """Join workers, quiesce all in-flight messages, run final checks."""
         if not self._started or self._finished:
             raise RuntimeError("runtime not running")
+        if self._proc_mode:
+            return self._wait_proc()
         for t in self._workers:
             while t.is_alive():
                 t.join(timeout=0.5)
@@ -640,6 +788,95 @@ class PSRuntime(_WorkerFlowMixin):
             self._final_checks()
         return self.stats
 
+    # -------------------------------------------------------- proc-mode wait
+    def _wait_proc(self) -> RunStats:
+        finals: Dict[int, dict] = {}
+        try:
+            for pid, pipe in enumerate(self._pipes):
+                budget = max(0.1, self._deadline - time.monotonic())
+                fin = T.recv_state(pipe, time.monotonic() + budget)
+                if fin is not None:
+                    finals[pid] = fin
+            for child in self._children:
+                child.join(timeout=max(0.1, self._deadline - time.monotonic()))
+                if child.is_alive():
+                    child.terminate()
+                    child.join(timeout=5.0)
+                    self._record_error(RuntimeError(
+                        f"client process {child.name} killed at deadline"))
+            for pid, child in enumerate(self._children):
+                if pid not in finals:
+                    # exitcode read after the join above, so the diagnostic
+                    # reflects how the child actually ended
+                    self._record_error(RuntimeError(
+                        f"client process {pid} sent no final state "
+                        f"(exitcode={child.exitcode})"))
+            # children exited => their EOF frames are on the wire; readers
+            # drain them into the shard inboxes and stop
+            for r in self._readers:
+                r.join(timeout=max(0.1, self._deadline - time.monotonic()) + 5)
+            for s in self.shards:
+                s.inbox.put(SHUTDOWN)
+            for s in self.shards:
+                s.thread.join(timeout=5.0)
+        finally:
+            self._finished = True
+            self._cleanup_transport()
+        self._merge_finals(finals)
+        self.stats.sim_time = time.monotonic() - self._t0
+        if self._errors:
+            raise RuntimeError(
+                f"runtime failed: {self._errors[0]!r}") from self._errors[0]
+        if self.check:
+            self._final_checks()
+        return self.stats
+
+    def _cleanup_transport(self) -> None:
+        for fd in self._pipes:
+            os.close(fd)
+        self._pipes = []
+        if self.transport_kind == "tcp":
+            self._transport.close_listener()
+            for conn in self._conns.values():
+                conn.close()
+        elif self._transport is not None:
+            self._reader_stop.set()
+            self._transport.close(unlink=True)
+        self._transport = None
+
+    def _merge_finals(self, finals: Dict[int, dict]) -> None:
+        clock_times: List[List[float]] = []
+        for pid, fin in sorted(finals.items()):
+            st: RunStats = fin["stats"]
+            for err in fin["errors"]:
+                self._errors.append(RuntimeError(f"client {pid}: {err}"))
+            self.stats.n_updates += st.n_updates
+            self.stats.block_time_clock += st.block_time_clock
+            self.stats.block_time_value += st.block_time_value
+            self.stats.max_observed_staleness = max(
+                self.stats.max_observed_staleness, st.max_observed_staleness)
+            self.stats.max_unsynced_mag = max(
+                self.stats.max_unsynced_mag, st.max_unsynced_mag)
+            self.stats.max_update_mag = max(
+                self.stats.max_update_mag, st.max_update_mag)
+            self.stats.max_unsynced_norm = max(
+                self.stats.max_unsynced_norm, st.max_unsynced_norm)
+            self.stats.max_update_norm = max(
+                self.stats.max_update_norm, st.max_update_norm)
+            self.stats.violations.extend(st.violations)
+            for k, v in fin["total"].items():
+                self._total[k] += v
+            self._parts_sent[pid] = fin.get("parts_sent", 0)
+            self._final_caches[pid] = fin["cache"]
+            clock_times.append(st.clock_times)
+        if clock_times and all(clock_times):
+            n = min(len(c) for c in clock_times)
+            self.stats.clock_times = [
+                max(c[i] for c in clock_times) for i in range(n)]
+
+    def _on_shard_fin(self, msg: ShardFinMsg) -> None:
+        raise TypeError("ShardFin must not reach the in-process runtime")
+
     def run(self, update_fn: Callable, n_clocks: int,
             timeout: float = 120.0) -> RunStats:
         """Run every worker for ``n_clocks`` periods (start + wait)."""
@@ -658,11 +895,20 @@ class PSRuntime(_WorkerFlowMixin):
         """True while workers are still producing updates."""
         if self._finished or not self._started:
             return False
+        if self._proc_mode:
+            return any(c.is_alive() for c in self._children)
         return any(t.is_alive() for t in self._workers)
 
     # ------------------------------------------------------------- reads
     def read(self, key: str, process: int = 0) -> np.ndarray:
-        """Serving read: a Get() against a live process cache."""
+        """Serving read: a Get() against a live process cache (threaded
+        mode), or against the live master shards / the final shipped cache
+        (multi-process mode, where peer caches live in other processes)."""
+        if self._proc_mode:
+            if self._finished and self._final_caches:
+                return self._final_caches[process][key].copy().reshape(
+                    self._shapes[key])
+            return self.master_value(key)
         proc = self.procs[process]
         with proc.cond:
             flat = proc.cache[key].copy()
@@ -689,6 +935,13 @@ class PSRuntime(_WorkerFlowMixin):
 
     def view(self, process: int) -> Dict[str, np.ndarray]:
         """A process cache as {key: array in the original shape}."""
+        if self._proc_mode:
+            if not self._finished:
+                raise RuntimeError("multi-process caches are only shipped "
+                                   "back at wait(); use read() mid-run")
+            cache = self._final_caches[process]
+            return {k: v.copy().reshape(self._shapes[k])
+                    for k, v in cache.items()}
         proc = self.procs[process]
         with proc.cond:
             return {k: v.copy().reshape(self._shapes[k])
@@ -699,9 +952,11 @@ class PSRuntime(_WorkerFlowMixin):
         """Eventual consistency: caches and master equal x0 + sum(updates)."""
         expected = {k: self.expected_value(k).reshape(self._x0[k].shape)
                     for k in self._x0}
-        for p, proc in enumerate(self.procs):
+        caches = (self._final_caches.items() if self._proc_mode
+                  else ((p, proc.cache) for p, proc in enumerate(self.procs)))
+        for p, cache in caches:
             for k in self._x0:
-                if not np.allclose(proc.cache[k], expected[k], atol=1e-6):
+                if not np.allclose(cache[k], expected[k], atol=1e-6):
                     self._violation(
                         f"eventual-consistency violation on {k} (process {p})")
         for k in self._x0:
@@ -718,3 +973,208 @@ class PSRuntime(_WorkerFlowMixin):
             self._violation(
                 f"update audit: parts sent {self._parts_sent.tolist()} != "
                 f"applied {applied.tolist()} (lost or duplicated updates)")
+
+
+# ---------------------------------------------------------------------------
+# forked client process (wire transports)
+# ---------------------------------------------------------------------------
+
+
+class _ClientHost(_WorkerFlowMixin):
+    """Child-side runtime facade: owns one :class:`ClientProcess`, its
+    worker threads, and the wire channels to every shard.  Mirrors the
+    attribute surface :class:`_WorkerFlowMixin` and :class:`ClientProcess`
+    expect from ``rt``.
+
+    Everything it reads from the parent's runtime is host state (numpy
+    arrays, the partition, the policy, ``update_fn``): the parent's master
+    blocks stay on the device and the child never touches them, nor CUDA
+    at all.
+    """
+
+    def __init__(self, rt: PSRuntime, pid: int):
+        self.pid = pid
+        self.policy = rt.policy
+        self.seed = rt.seed
+        self.check = rt.check
+        self.barrier_reads = rt.barrier_reads
+        self.prioritize = rt.prioritize
+        self.metrics_on = rt.metrics_on
+        self.n_shards = rt.n_shards
+        self.n_proc = rt.n_proc
+        self.tpp = rt.tpp
+        self.update_fn = rt.update_fn
+        self.n_clocks = rt.n_clocks
+        self._deadline = rt._deadline
+        self._x0 = rt._x0
+        self._shapes = rt._shapes
+        self._row_counts = rt._row_counts
+        self.partition = rt.partition
+        self._t0 = time.monotonic()
+
+        self.stats = RunStats()
+        self._slock = threading.Lock()
+        self._total = {k: np.zeros_like(v) for k, v in self._x0.items()}
+        self._parts_sent = np.zeros(rt.n_proc, dtype=np.int64)
+        # globally unique uids without cross-process coordination
+        self._uid = itertools.count(pid, rt.n_proc)
+        self._errors: List[BaseException] = []
+        self._fins: set = set()
+        self._all_fins = threading.Event()
+
+        self.proc = ClientProcess(self, pid)
+        self.procs = {pid: self.proc}
+        self._readers: List[threading.Thread] = []
+        chans: List[T.WireChannel] = []
+        if rt.transport_kind == "tcp":
+            self._conns = rt._transport.connect(pid)
+            for s in range(rt.n_shards):
+                conn = self._conns[s]
+                chans.append(T.WireChannel(f"p{pid}->s{s}", conn.write))
+                self._readers.append(T.start_reader(
+                    f"rx-s{s}", conn.read_chunk, self.proc.inbox,
+                    self._record_error))
+        else:
+            self._stop = threading.Event()
+            codec = (T.RowCodec(list(self._x0.keys())) if rt.zero_copy
+                     else None)
+            for s in range(rt.n_shards):
+                edge = rt._transport.edges[(pid, s)]
+                if codec is not None:
+                    bell_w = edge.c2s_bell[1]
+                    chans.append(T.WireChannel(
+                        f"p{pid}->s{s}",
+                        T.ring_parts_writer(edge.c2s, self._deadline),
+                        max_frame=rt._shm_max_frame, codec=codec,
+                        on_flush=lambda w=bell_w: T.ShmEdge.ring_bell(w)))
+                    self._readers.append(T.start_view_reader(
+                        f"rx-s{s}",
+                        T.RingViewReader(edge.s2c, codec, edge.s2c_bell[0],
+                                         self._stop),
+                        self.proc.inbox, self._record_error))
+                else:
+                    chans.append(T.WireChannel(
+                        f"p{pid}->s{s}",
+                        T.ring_writer(edge.c2s, edge.c2s_bell[1],
+                                      self._deadline),
+                        max_frame=rt._shm_max_frame))
+                    self._readers.append(T.start_reader(
+                        f"rx-s{s}", T.ring_reader(edge.s2c, edge.s2c_bell[0],
+                                                  self._stop),
+                        self.proc.inbox, self._record_error))
+        self._channels = chans
+        self._chan_ps = {pid: chans}
+
+    # ---------------------------------------------------------- rt interface
+    def proc_of(self, worker: int) -> int:
+        return self.pid
+
+    def _magnitude_order(self, mags: np.ndarray) -> np.ndarray:
+        """The send order in host numpy: a forked child must not touch CUDA,
+        and this is the reference child's own order — the ``topk_mag``
+        contract (descending, ties in index order, NaN last), not a
+        fallback.  So forked clients launch ``topk_mag`` no time."""
+        return np.argsort(-mags, kind="stable")
+
+    def _next_uid(self) -> int:
+        return next(self._uid)
+
+    def _send(self, chan, msg) -> None:
+        chan.send(msg)
+
+    def _send_many(self, chan, msgs: list) -> None:
+        if msgs:
+            chan.send_many(msgs)
+
+    def _msg_done(self) -> None:
+        pass
+
+    def _violation(self, text: str) -> None:
+        with self._slock:
+            self.stats.violations.append(text)
+
+    def _record_error(self, e: BaseException) -> None:
+        with self._slock:
+            self._errors.append(e)
+
+    def _check_alive(self) -> None:
+        if time.monotonic() > self._deadline:
+            raise RuntimeError("client deadline exceeded (gate stuck)")
+        if self._errors:
+            raise RuntimeError("client aborted: peer thread failed")
+
+    def _note_global_clock(self) -> None:
+        # local completion times; the parent merges max() across processes
+        now = time.monotonic() - self._t0
+        with self._slock:
+            while len(self.stats.clock_times) < self.proc.sent_clock:
+                self.stats.clock_times.append(now)
+
+    def _on_shard_fin(self, msg: ShardFinMsg) -> None:
+        self._fins.add(msg.shard)
+        if len(self._fins) == self.n_shards:
+            self._all_fins.set()
+
+    # ---------------------------------------------------------------- run
+    def run(self) -> dict:
+        self.proc.thread.start()
+        workers = [threading.Thread(target=self._worker_loop, args=(w,),
+                                    name=f"ps-worker-{w}", daemon=True)
+                   for w in self.proc.workers]
+        for t in workers:
+            t.start()
+        timed_out = False
+        for t in workers:
+            while t.is_alive():
+                t.join(timeout=0.5)
+                if time.monotonic() > self._deadline:
+                    timed_out = True
+                    self._record_error(RuntimeError(
+                        f"worker {t.name} still alive at deadline"))
+                    break
+        if not timed_out:
+            # quiesce leg 1: no more updates/clocks from this process (acks
+            # for still-inbound deliveries continue from the comm thread).
+            # A still-running (timed-out) worker forbids this promise — the
+            # run is failing anyway; ship the error without the handshake.
+            for chan in self._channels:
+                self._send(chan, ProcDoneMsg(self.pid, self.proc.part.epoch))
+            # quiesce leg 2: every shard's fin = our inbound stream is done
+            if not self._all_fins.wait(
+                    timeout=max(0.1, self._deadline - time.monotonic())):
+                self._record_error(RuntimeError(
+                    f"client {self.pid}: shard fins missing "
+                    f"(have {sorted(self._fins)})"))
+        self.proc.inbox.put(SHUTDOWN)
+        self.proc.thread.join(timeout=5.0)
+        for chan in self._channels:
+            chan.close()                       # EOF frame ends parent readers
+        return {
+            "pid": self.pid,
+            "stats": self.stats,
+            "total": self._total,
+            "cache": self.proc.cache,
+            "parts_sent": int(self._parts_sent[self.pid]),
+            "errors": [repr(e) for e in self._errors],
+        }
+
+
+def _client_child_main(rt: PSRuntime, pid: int, pipe: int) -> None:
+    """Entry point of a forked client process; ships its final state to
+    the parent through the pipe's write end ``pipe``."""
+    try:
+        # comm/reader threads must grab the GIL promptly from the
+        # compute-bound worker: the default 5 ms switch interval adds a
+        # multi-ms stall to every inbound frontier/delivery hop
+        sys.setswitchinterval(1e-3)
+        host = _ClientHost(rt, pid)
+        payload = host.run()
+    except BaseException as e:
+        payload = {"pid": pid, "stats": RunStats(), "total": {},
+                   "cache": {}, "errors": [repr(e)]}
+    try:
+        T.send_state(pipe, payload)
+    finally:
+        # skip the teardown inherited from the parent (its atexit hooks and
+        # the device state a forked child must not touch)
+        os._exit(0)

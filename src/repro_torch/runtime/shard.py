@@ -32,6 +32,16 @@ the simulator, a queued update is *not* counted against the clock frontier
 — the marker echo is immediate — so the two bounds compose identically in
 both implementations.
 
+Multi-process quiesce: when the runtime runs with a wire transport, each
+client sends :class:`ProcDoneMsg` after its last clock; once every process
+is done and ``pending``/``queued``/ESSP-held deliveries have drained, the
+shard broadcasts :class:`ShardFinMsg` (FIFO-after everything else it will
+ever send), which is the client's signal that its inbound stream is
+complete.  On the shm transport with the zero-copy wire, an update part's
+``rows`` and ``delta`` are numpy views into the client's ring: the apply
+copies them to the device before the batch's frame pins are released, and
+anything retained past the batch is materialized first.
+
 ESSP (eager server push, arXiv:1410.8043): under ``Policy("essp", ...)``
 the shard parks each applied part's fan-out :class:`DeliverMsg`\\ s in a
 per-destination hold instead of sending immediately, and releases the
@@ -54,7 +64,8 @@ from repro_torch.core import controller
 from repro_torch.kernels.ps_apply import ops as apply_ops
 from repro_torch.runtime.messages import (SHUTDOWN, AckBatchMsg, Channel,
                                           ClockMarker, ClockMsg, DeliverMsg,
-                                          FullyDelivered, UpdateMsg,
+                                          FullyDelivered, ProcDoneMsg,
+                                          ShardFinMsg, UpdateMsg,
                                           group_by_channel, pump_inbox)
 from repro_torch.runtime.transport import (FifoAssert, materialize_msg,
                                            release_msgs)
@@ -139,6 +150,9 @@ class ServerShard:
         # proc_load maps pid -> (clock, counters) from the ClockMsg piggyback
         self.m_rows_applied = 0            # row-updates applied
         self.proc_load: Dict[int, Tuple[int, np.ndarray]] = {}
+        # multi-process quiesce: processes that sent ProcDone; fin sent once
+        self._done_procs: set = set()
+        self._fin_sent = False
         self.thread = threading.Thread(
             target=self._loop, name=f"ps-shard-{sid}", daemon=True)
 
@@ -174,8 +188,16 @@ class ServerShard:
                 rt._record_error(e)
         try:
             self._flush_updates(run)
+            if rt._proc_mode and not shutdown:
+                self._maybe_fin()
         except BaseException as e:
             rt._record_error(e)
+        # zero-copy discipline: every view consumed by the applies above is
+        # done with, and everything retained (queued/pending/outbox) was
+        # materialized — release the frame pins BEFORE the blocking outbox
+        # writes.  Blocking on a full s->c ring while still pinning the c->s
+        # ring would let two full rings deadlock each other (the client comm
+        # thread observes the mirror-image rule).
         release_msgs(batch)
         self._flush_outbox()
         # in-flight decrements must come *after* the sends this batch caused
@@ -228,8 +250,26 @@ class ServerShard:
                     self._send(rt._chan_sp[self.sid][q],
                                ClockMarker(msg.process, self.sid, msg.clock,
                                            self.epoch))
+        elif isinstance(msg, ProcDoneMsg):
+            self._done_procs.add(msg.process)
+            # ESSP: no further ClockMsg from this process will trigger a
+            # boundary flush — release any backlog so the fin can drain
+            self._flush_essp_hold()
         else:
             raise TypeError(f"shard {self.sid}: unexpected message {msg!r}")
+
+    # ------------------------------------------------------- proc quiesce
+    def _maybe_fin(self) -> None:
+        """Broadcast ShardFin once every process is done and deliveries have
+        fully drained — nothing further will ever leave this shard."""
+        rt = self.rt
+        if (self._fin_sent or len(self._done_procs) < rt.n_proc
+                or self.pending or any(self.queued.values())
+                or self._essp_hold):
+            return
+        self._fin_sent = True
+        for q in range(rt.n_proc):
+            self._send(rt._chan_sp[self.sid][q], ShardFinMsg(self.sid))
 
     # --------------------------------------------------------------- updates
     def _flush_updates(self, run: List[UpdateMsg]) -> None:
@@ -265,11 +305,17 @@ class ServerShard:
                         f"[{local.min()}, {local.max()}], outside "
                         f"[0, {dense.shape[0]})")
                 # synchronous copies from pageable host memory: the arrays
-                # are free to be reused once these return
+                # are free to be reused once these return.  Under the shm
+                # zero-copy wire a single part's delta is a view into the
+                # client's ring, and the batch's frame pins are released
+                # right after this apply (_handle_batch): the copy must have
+                # read every byte by then, so it stays synchronous — no
+                # non_blocking=True and no pinned staging here.  torch.tensor
+                # copies rather than shares (a pickle frame's arrays are
+                # read-only views of the frame's bytes).
                 idx = torch.from_numpy(local).to(dense.device)
-                d = torch.from_numpy(
-                    np.ascontiguousarray(delta, dtype=np.float64)
-                ).to(dense.device)
+                d = torch.tensor(np.ascontiguousarray(delta, dtype=np.float64),
+                                 device=dense.device)
                 if len(msgs) == 1 and dense.device.type == "cpu":
                     # rows are unique within one part: plain fancy-index add
                     dense[idx] += d

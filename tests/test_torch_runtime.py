@@ -383,12 +383,25 @@ def test_uid_dedup_records_and_prunes():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(transport="shm"), dict(snapshot_every=2, snapshot_dir="x"),
+    dict(restore_from={"shards": []}), dict(snapshot_every=2, snapshot_dir="x"),
     dict(max_shards=4), dict(wal_dir="w"), dict(trace=True),
-    dict(zero_copy=True)], ids=lambda kw: next(iter(kw)))
+    dict(membership_plan=object())], ids=lambda kw: next(iter(kw)))
 def test_config_tiers_not_ported_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RuntimeConfig(2, policies.bsp(), _x0(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("zero_copy", [None, True, False])
+@pytest.mark.parametrize("transport", ["queue", "shm", "proc", "tcp"])
+def test_config_accepts_the_wire_transports(transport, zero_copy):
+    cfg = RuntimeConfig(4, policies.bsp(), _x0(), threads_per_process=2,
+                        transport=transport, zero_copy=zero_copy,
+                        device="cpu")
+    rt = PSRuntime(cfg)
+    assert rt.transport_kind == ("shm" if transport == "proc" else transport)
+    assert rt._proc_mode == (transport != "queue")
+    assert rt.zero_copy == (zero_copy is not False)
+    assert len(rt.procs) == (0 if rt._proc_mode else 2)
 
 
 def test_config_validates_like_reference():
