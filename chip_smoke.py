@@ -44,6 +44,30 @@ Phases, each printed as one JSON line:
            bsp with barrier_reads, 2 clocks, same seed, on shm (zero-copy),
            tcp and queue: the three final masters must be bitwise equal
            (counts in f64, each clock reading exactly the earlier clocks).
+  durable  the wire phase's main run (shm, zero-copy, 4 forked clients, 2
+           shards, ssp(1), 3 clocks, the same 50,000 x 1,000 f64 masters on
+           the card) with the runtime's observability and durability tiers
+           on: trace={"sample": 1.0} with rings far larger than the run
+           records, a write-ahead log with wal_fsync="boundary" and a
+           snapshot every 2 clocks, both in a fresh tempfile directory (one
+           under build/ if tempfile's is in memory, where fsync is a no-op;
+           its filesystem type is printed).  Then recover_to_vc replays the
+           log on the card (every part through ps_apply), once from genesis
+           and once from the snapshot.  Prints the wall split (start,
+           wait, each recovery, the trace dump), the WAL's parts, commits,
+           bytes, segments and fsync seconds from rt.metrics() beside the
+           bytes on disk, the snapshots' files and bytes, the trace's events
+           by kind, its drops and the Chrome JSON's size, the device's busy
+           time and idle share, ps_apply's launches in the run and in each
+           replay, and the wire phase's wall from the same process.
+           Checks: no violations; parts sent = applied; the master and every
+           shipped cache x0 + sum(updates) exactly; each recovery bitwise
+           equal to the final master, folding exactly the shards'
+           applied_parts (none lost, none applied twice); genesis replaying
+           every part and the snapshot recovery fewer; the trace's send_part
+           points = apply_part points = sum(applied_parts), 0 dropped; the
+           metrics' parts_applied and wal_parts equal to it, and wal_bytes
+           to the segment files' sizes.
   lda_spmd the second path: run_lda_spmd(device="cuda") on the same corpus,
            4 replicas of the 50,000 x 1,000 and 1,000 float32 tables stacked
            on the card, 3 clocks under cvap(2, v), the vap_accum launch
@@ -163,9 +187,11 @@ import json
 import os
 import platform
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1163,7 +1189,209 @@ def run_wire_phase(dev, corpus, lda_wall_s):
           "bsp_bitwise": {"clocks": WIRE_BSP_CLOCKS, "barrier_reads": True,
                           "transports": list(masters), "wall_s": walls,
                           "equal": True}})
-    return launches
+    return launches, wall_s
+
+
+DURABLE_SNAPSHOT_EVERY = 2
+# events a thread ring holds: far above what a 3-clock run records in one
+# thread (the shard threads record ~10 events a batch)
+DURABLE_TRACE = {"sample": 1.0, "capacity": 1 << 20}
+RAM_FS = ("tmpfs", "ramfs")
+
+
+def fs_type(path: str) -> str:
+    """The type of the filesystem ``path`` lives on (/proc/mounts, longest
+    mount point that contains it)."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            mnt = fields[1].replace("\\040", " ")
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best):
+                best, kind = mnt, fields[2]
+    return kind
+
+
+def durable_dir() -> str:
+    """A fresh directory for the WAL and the snapshots on a filesystem
+    where fsync reaches a disk: tempfile's, unless that is in memory, then
+    one under this checkout's build/ (gitignored)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    if fs_type(root) not in RAM_FS:
+        return root
+    os.rmdir(root)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    return tempfile.mkdtemp(prefix="chip_smoke_durable_", dir=build)
+
+
+def run_durable_phase(dev, corpus, wire_wall_s):
+    """The wire phase's run with the observability and durability tiers on
+    (full tracing, the WAL with an fsync every group commit, a snapshot
+    every 2 clocks), then the WAL replayed on the card: from genesis and
+    from the snapshot, each bitwise equal to the run's final master.
+    Returns the kernels' launches in the run and in each replay."""
+    from repro_torch.core import policies
+    from repro_torch.runtime import recover_to_vc, wal_segments
+    from repro_torch.runtime import trace as trace_mod
+
+    root = durable_dir()
+    wal_dir = os.path.join(root, "wal")
+    snap_dir = os.path.join(root, "snaps")
+    try:
+        rt, fn = _wire_runtime(
+            dev, corpus, policies.ssp(1), "shm", zero_copy=True,
+            trace=DURABLE_TRACE, wal_dir=wal_dir, wal_fsync="boundary",
+            snapshot_every=DURABLE_SNAPSHOT_EVERY, snapshot_dir=snap_dir)
+        x0 = rt.config.init_params
+        # torch.profiler's first session in a process, entered after the
+        # fork, recorded none of the shard threads' kernels on the H100
+        # machine (only the last copy): one short session before the fork
+        # sets CUPTI up, so the phase does not depend on an earlier one
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+        with path_run(dev) as run:
+            t = time.perf_counter()
+            rt.start(fn, N_CLOCKS, timeout=600)
+            t_prof = time.perf_counter()
+            # the clients are forked by now: profile this process only
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                stats = rt.wait()
+                torch.cuda.synchronize()
+            end = time.perf_counter()
+        start_s, wait_s = t_prof - t, end - t_prof
+        launches = run["launches"]
+        device_s = device_seconds(prof)
+        busy_s = sum(device_s.values())
+        if stats.violations:
+            raise AssertionError(f"durable: violations {stats.violations[:5]}")
+        applied_by_proc = sum(s.applied_parts for s in rt.shards)
+        applied = int(applied_by_proc.sum())
+        sent = int(rt._parts_sent.sum())
+        if applied != sent:
+            raise AssertionError(f"durable: parts sent {sent} != applied "
+                                 f"{applied}")
+        masters = _check_lda_master(rt, corpus, "durable")
+        if launches["ps_apply"] <= 0 or launches["topk_mag"] != 0:
+            raise AssertionError(f"durable: ps_apply launched "
+                                 f"{launches['ps_apply']} times, topk_mag "
+                                 f"{launches['topk_mag']}")
+
+        # the trace reconciles exactly: every part's send and its apply
+        hub = rt._trace
+        counts = hub.counts()
+        n_send = counts.get(trace_mod.EV_SEND, 0)
+        n_land = counts.get(trace_mod.EV_APPLY_PART, 0)
+        if not (n_send == n_land == applied and hub.dropped() == 0):
+            raise AssertionError(f"durable: trace send_part {n_send}, "
+                                 f"apply_part {n_land}, applied {applied}, "
+                                 f"dropped {hub.dropped()}")
+
+        # the metrics agree with the audit counters and with the disk
+        m = rt.metrics()
+        seg_paths = [p for segs in wal_segments(wal_dir).values()
+                     for _, p in segs]
+        seg_bytes = sum(os.path.getsize(p) for p in seg_paths)
+        wal = {"parts": sum(x.wal_parts for x in m.shards),
+               "commits": sum(x.wal_commits for x in m.shards),
+               "bytes": sum(x.wal_bytes for x in m.shards),
+               "segments": sum(x.wal_segments for x in m.shards),
+               "fsync_s": sum(x.wal_fsync_s for x in m.shards)}
+        parts_applied = sum(x.parts_applied for x in m.shards)
+        if not (parts_applied == wal["parts"] == applied
+                and wal["bytes"] == seg_bytes
+                and wal["segments"] == len(seg_paths)):
+            raise AssertionError(
+                f"durable: metrics parts_applied {parts_applied}, wal_parts "
+                f"{wal['parts']}, applied {applied}; wal_bytes "
+                f"{wal['bytes']} vs {seg_bytes} on disk in "
+                f"{len(seg_paths)} segments")
+        snap_files = sorted(os.listdir(snap_dir))
+        snap_bytes = sum(os.path.getsize(os.path.join(snap_dir, f))
+                         for f in snap_files)
+
+        t = time.perf_counter()
+        info = rt.dump_trace(os.path.join(root, "trace.json"))
+        dump_s = time.perf_counter() - t
+        json_bytes = os.path.getsize(info["path"])
+
+        # WAL recovery on the card: from genesis, then from the snapshot
+        recs, rec_s, replay_launches = {}, {}, {}
+        for name, kw in (("genesis", {}),
+                         ("snapshot", {"snapshot_dir": snap_dir})):
+            with path_run(dev) as rrun:
+                t = time.perf_counter()
+                rec = recover_to_vc(x0, wal_dir, device="cuda", **kw)
+                torch.cuda.synchronize()
+                rec_s[name] = time.perf_counter() - t
+            replay_launches[name] = rrun["launches"]
+            for key, want in masters.items():
+                if not np.array_equal(rec["params"][key], want):
+                    raise AssertionError(f"durable: {name} recovery's {key} "
+                                         f"is not bitwise the final master")
+            if not np.array_equal(rec["applied_parts"], applied_by_proc):
+                raise AssertionError(
+                    f"durable: {name} recovery folded "
+                    f"{rec['applied_parts'].tolist()} parts, the shards "
+                    f"applied {applied_by_proc.tolist()}")
+            if rec["n_replayed"] and rrun["launches"]["ps_apply"] <= 0:
+                raise AssertionError(f"durable: {name} replay launched no "
+                                     f"ps_apply")
+            recs[name] = rec
+        gen, snap = recs["genesis"], recs["snapshot"]
+        if not (gen["from_snapshot"] is None
+                and gen["n_replayed"] == applied
+                and snap["from_snapshot"] is not None
+                and snap["n_replayed"] < gen["n_replayed"]):
+            raise AssertionError(
+                f"durable: genesis replayed {gen['n_replayed']} of "
+                f"{applied}; the snapshot recovery started from clock "
+                f"{snap['from_snapshot']} and replayed {snap['n_replayed']}")
+        emit({"phase": "durable", "transport": "shm", "zero_copy": True,
+              "vocab": VOCAB, "n_topics": N_TOPICS, "workers": N_WORKERS,
+              "client_processes": rt.n_proc, "shards": N_SHARDS,
+              "policy": "ssp(1)", "clocks": N_CLOCKS, "reduced": REDUCED,
+              "trace": DURABLE_TRACE, "wal_fsync": "boundary",
+              "snapshot_every": DURABLE_SNAPSHOT_EVERY,
+              "dir_fs": fs_type(root),
+              "wall_s": {"start": start_s, "wait": wait_s,
+                         "run": start_s + wait_s,
+                         "recover_genesis": rec_s["genesis"],
+                         "recover_snapshot": rec_s["snapshot"],
+                         "dump_trace": dump_s},
+              "wire_phase_wall_s": wire_wall_s,
+              "device_busy_s": busy_s,
+              "device_idle_share": 1.0 - busy_s / wait_s,
+              "device_s_by_name": dict(sorted(device_s.items(),
+                                              key=lambda kv: -kv[1])[:8]),
+              "ps_apply_device_s": ps_apply_seconds(device_s,
+                                                    launches["ps_apply"]),
+              "launches": launches,
+              "replay_launches": {k: v["ps_apply"]
+                                  for k, v in replay_launches.items()},
+              "parts_sent": sent, "parts_applied": applied,
+              "wal": {**wal, "bytes_on_disk": seg_bytes},
+              "snapshots": {"files": snap_files, "bytes": snap_bytes,
+                            "in_memory": [c for c, _ in rt.snapshots]},
+              "recovery": {k: {"from_snapshot": v["from_snapshot"],
+                               "n_replayed": v["n_replayed"],
+                               "n_deduped": v["n_deduped"],
+                               "clock": v["clock"], "bitwise": True}
+                           for k, v in recs.items()},
+              "trace_events": {trace_mod._NAMES[k]: n
+                               for k, n in sorted(counts.items())},
+              "trace_dropped": hub.dropped(),
+              "trace_json_bytes": json_bytes,
+              "trace_reconciles": True, "violations": 0,
+              "master_exact": True})
+        return launches, replay_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 SPMD_STALENESS = 2
@@ -1632,7 +1860,9 @@ def main() -> None:
                               n_topics=TRUE_TOPICS, doc_len=DOC_LEN, seed=0)
     corpus_s = time.perf_counter() - t
     launches, calls, lda_wall_s = run_lda_phase(dev, corpus, corpus_s)
-    wire_launches = run_wire_phase(dev, corpus, lda_wall_s)
+    wire_launches, wire_wall_s = run_wire_phase(dev, corpus, lda_wall_s)
+    durable_launches, replay_launches = run_durable_phase(dev, corpus,
+                                                          wire_wall_s)
     spmd_launches, vap_shapes = run_lda_spmd_phase(dev, corpus)
     launches.update(spmd_launches)
     app_launches, app_calls = run_apps_phase(dev)
@@ -1724,6 +1954,9 @@ def main() -> None:
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
                       "wire_launches": wire_launches[name],
+                      "durable_launches": durable_launches[name],
+                      "replay_launches": {
+                          k: v[name] for k, v in replay_launches.items()},
                       **{k: main_case[k] for k in keys}})
     # rglru_scan's entries: the fused one per dtype at the serve path's
     # calls, the bare recurrence at the serve shape (off the path); launches:

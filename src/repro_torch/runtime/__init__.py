@@ -6,22 +6,58 @@ spec): worker threads grouped into client processes (threads in one
 interpreter on the ``queue`` transport, forked OS processes on the ``shm``
 and ``tcp`` wire transports), FIFO channels, and server shards whose master
 blocks are float64 tensors on the runtime's device, applied by the
-``ps_apply`` kernel.
+``ps_apply`` kernel.  Around it: unified metrics (:mod:`.metrics`),
+sampled tracing (:mod:`.trace`), a per-shard write-ahead log (:mod:`.wal`),
+and snapshots with exact-clock recovery replayed on the card
+(:mod:`.snapshot`).
 """
+import logging as _logging
+
 from repro_torch.runtime.config import TRANSPORTS, RuntimeConfig
 from repro_torch.runtime.membership import INF_CLOCK, Partition
 from repro_torch.runtime.messages import (AckBatchMsg, Channel, ClockMarker,
                                           ClockMsg, DeliverMsg,
                                           FullyDelivered, ProcDoneMsg,
-                                          ShardFinMsg, UpdateMsg)
+                                          ReplicaVcMsg, ShardFinMsg,
+                                          UpdateMsg)
+from repro_torch.runtime.metrics import (GatewayMetrics, MembershipMetrics,
+                                         MetricsHub, ProcessMetrics,
+                                         ReplicaMetrics, RunMetrics,
+                                         RuntimeMetrics, ShardMetrics,
+                                         SnapshotMetrics)
 from repro_torch.runtime.runtime import (ClientProcess, PSRuntime,
                                          RuntimeViewHandle)
 from repro_torch.runtime.shard import ServerShard, UidDedup
-from repro_torch.runtime.transport import FifoAssert
+from repro_torch.runtime.snapshot import (conservative_vc, load_snapshot,
+                                          recover_to_vc, save_snapshot,
+                                          snapshot_params, take_snapshot,
+                                          validate_vcs)
+from repro_torch.runtime.trace import (TraceConfig, TraceHub,
+                                       dump_chrome_trace, explain_block,
+                                       explain_read, staleness_timeline)
+from repro_torch.runtime.transport import (FifoAssert, FrameDecoder, ShmRing,
+                                           WireChannel, encode_frame,
+                                           require_tso)
+from repro_torch.runtime.wal import (WalWriter, prune_segments, read_segment,
+                                     wal_segments)
 
 __all__ = [
     "AckBatchMsg", "Channel", "ClientProcess", "ClockMarker", "ClockMsg",
-    "DeliverMsg", "FifoAssert", "FullyDelivered", "INF_CLOCK", "PSRuntime",
-    "Partition", "ProcDoneMsg", "RuntimeConfig", "RuntimeViewHandle",
-    "ServerShard", "ShardFinMsg", "TRANSPORTS", "UidDedup", "UpdateMsg",
+    "DeliverMsg", "FifoAssert", "FrameDecoder", "FullyDelivered",
+    "GatewayMetrics", "INF_CLOCK", "MembershipMetrics", "MetricsHub",
+    "PSRuntime", "Partition", "ProcDoneMsg", "ProcessMetrics",
+    "ReplicaMetrics", "ReplicaVcMsg", "RunMetrics", "RuntimeConfig",
+    "RuntimeMetrics", "RuntimeViewHandle", "ServerShard", "ShardFinMsg",
+    "ShardMetrics", "ShmRing", "SnapshotMetrics", "TRANSPORTS",
+    "TraceConfig", "TraceHub", "UidDedup", "UpdateMsg", "WalWriter",
+    "WireChannel",
+    "conservative_vc", "dump_chrome_trace", "encode_frame", "explain_block",
+    "explain_read", "load_snapshot", "prune_segments", "read_segment",
+    "recover_to_vc", "require_tso", "save_snapshot", "snapshot_params",
+    "staleness_timeline", "take_snapshot", "validate_vcs", "wal_segments",
 ]
+
+# library logging etiquette: the runtime emits structured degradation
+# warnings (WAL torn tails, shm stale-cursor retries); a NullHandler keeps
+# them silent unless the application configures logging
+_logging.getLogger("repro_torch.runtime").addHandler(_logging.NullHandler())

@@ -9,10 +9,10 @@ The single construction surface of :class:`~repro_torch.runtime.PSRuntime`:
     rt = PSRuntime(RuntimeConfig(4, ssp(3), x0, transport="shm"))  # forked
 
 The fields mirror the JAX package's ``RuntimeConfig`` so call sites carry
-over.  The tiers this port does not have yet (snapshots, elastic
-membership, the write-ahead log, tracing) keep their fields, and setting one
-raises :class:`NotImplementedError` naming the ROADMAP item that ports it,
-instead of being silently ignored.
+over, and so do its validations: a config is either valid or never
+constructed.  The tier this port does not have yet (elastic membership)
+keeps its fields, and setting one raises :class:`NotImplementedError`
+naming the ROADMAP item that ports it, instead of being silently ignored.
 """
 from __future__ import annotations
 
@@ -21,21 +21,15 @@ from typing import Optional, Tuple
 
 from repro_torch.core.policies import Policy
 from repro_torch.core.server import UpdateMap
+from repro_torch.runtime.trace import normalize_trace
+from repro_torch.runtime.wal import FSYNC_POLICIES as WAL_FSYNC
 
 TRANSPORTS: Tuple[str, ...] = ("queue", "tcp", "shm", "proc")
 
 # field -> (value the port runs with, ROADMAP item that ports the rest)
 _NOT_PORTED = {
-    "restore_from": (None, "Queue 1 item 5: snapshots and WAL recovery"),
-    "snapshot_every": (0, "Queue 1 item 5: snapshots and WAL recovery"),
-    "snapshot_dir": (None, "Queue 1 item 5: snapshots and WAL recovery"),
-    "snapshot_keep_last": (0, "Queue 1 item 5: snapshots and WAL recovery"),
-    "max_shards": (None, "Queue 1 item 5: elastic membership"),
-    "membership_plan": (None, "Queue 1 item 5: elastic membership"),
-    "wal_dir": (None, "Queue 1 item 5: write-ahead log"),
-    "wal_fsync": (None, "Queue 1 item 5: write-ahead log"),
-    "wal_segment_bytes": (1 << 22, "Queue 1 item 5: write-ahead log"),
-    "trace": (None, "Queue 1 item 5: metrics and tracing"),
+    "max_shards": (None, "Queue 1 item 5.4: elastic membership"),
+    "membership_plan": (None, "Queue 1 item 5.4: elastic membership"),
 }
 
 
@@ -59,6 +53,19 @@ class RuntimeConfig:
     port the device decides: on CUDA the kernels always run, on the CPU
     their plain PyTorch versions do.  Asking for CUDA on a host without a
     CUDA device raises when the runtime is built.
+
+    Durability (:mod:`repro_torch.runtime.wal`): ``wal_dir`` turns on a
+    per-shard write-ahead delta log, group-committed at clock boundaries;
+    ``wal_fsync`` is ``"none"`` (flush to the OS page cache, the default
+    once ``wal_dir`` is set) or ``"boundary"`` (fsync every group commit);
+    segments rotate past ``wal_segment_bytes``.  ``snapshot_every=k`` takes
+    a snapshot of the masters each time the applied frontier crosses a
+    multiple of k clocks, into ``snapshot_dir``, keeping the newest
+    ``snapshot_keep_last`` (0: all) and pruning the log segments the oldest
+    kept one covers; ``restore_from`` starts the runtime from a snapshot.
+    Tracing (:mod:`repro_torch.runtime.trace`): ``trace`` is None or False
+    (off, the default), True, a sample rate in (0, 1], a ``{"sample":,
+    "capacity":}`` dict or a ``TraceConfig``.
     """
 
     n_workers: int
@@ -96,6 +103,28 @@ class RuntimeConfig:
         if self.transport not in TRANSPORTS:
             raise ValueError(f"unknown transport {self.transport!r}; "
                              f"choose from {TRANSPORTS}")
+        if self.snapshot_every < 0:
+            raise ValueError("snapshot_every must be >= 0 (0 disables)")
+        if self.snapshot_every and not self.snapshot_dir:
+            raise ValueError(
+                "snapshot_every without snapshot_dir would drop every "
+                "periodic snapshot on the floor at restart; pass "
+                "snapshot_dir= (or set snapshot_every=0)")
+        if self.wal_fsync is not None and not self.wal_dir:
+            raise ValueError("wal_fsync without wal_dir is a silent no-op; "
+                             "pass wal_dir= (or drop wal_fsync)")
+        if self.wal_fsync is not None and self.wal_fsync not in WAL_FSYNC:
+            raise ValueError(f"unknown wal_fsync policy {self.wal_fsync!r}; "
+                             f"choose from {WAL_FSYNC}")
+        if self.wal_segment_bytes < 1:
+            raise ValueError("wal_segment_bytes must be >= 1")
+        if self.snapshot_keep_last < 0:
+            raise ValueError("snapshot_keep_last must be >= 0 (0 keeps all)")
+        if self.snapshot_keep_last and not self.snapshot_dir:
+            raise ValueError("snapshot_keep_last prunes on-disk snapshots; "
+                             "it requires snapshot_dir")
+        # a bad trace spec fails at construction, not at the first event
+        normalize_trace(self.trace)
         for name, (ported, item) in _NOT_PORTED.items():
             value = getattr(self, name)
             if value != ported and value not in (None, False):

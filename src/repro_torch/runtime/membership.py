@@ -3,7 +3,7 @@
 Row ``r`` of every key lives on shard ``active[r % A]`` at local index
 ``r // A`` of that shard's dense block.  This slice of the port runs one
 epoch with every shard active; live re-partitioning (add/remove shard, the
-epoch barrier protocol) is ROADMAP Queue 1 item 5.
+epoch barrier protocol) is ROADMAP Queue 1 item 5.4.
 """
 from __future__ import annotations
 
@@ -38,6 +38,10 @@ class Partition:
             rows = np.arange(r, dtype=np.int64)
             self._rows[key] = [np.ascontiguousarray(rows[rows % self.A == i])
                                for i in range(self.A)]
+
+    def owns(self, sid: int) -> bool:
+        """Whether slot ``sid`` owns rows in this epoch."""
+        return sid in self._index
 
     def rows_of(self, key: str, sid: int) -> np.ndarray:
         """Global row ids of ``key`` owned by slot ``sid`` (empty if the

@@ -23,6 +23,9 @@ Multi-process quiesce (forked clients over a wire transport):
     p -> s : ProcDoneMsg  process p finished all its clocks
     s -> p : ShardFinMsg  shard s has drained: nothing further follows
 
+Durability: a shard's write-ahead log stamps each group commit with a
+:class:`ReplicaVcMsg` (its applied vector clock).
+
 Messages carry host numpy arrays: the shard copies a part's rows and delta
 to the device only to apply them to its master block.
 """
@@ -129,6 +132,19 @@ class ShardFinMsg:
     Multi-process quiesce, leg 2: a client that has collected the fin of
     every shard holds its complete final state."""
     shard: int
+    seq: int = -1
+
+
+@dataclass
+class ReplicaVcMsg:
+    """A shard's applied per-process vector clock, FIFO after every update
+    part it covers (``clock_vc[p] == c``: every update of process p
+    timestamped <= c that touches this shard's rows was applied).  The
+    write-ahead log stamps each group commit with it
+    (:mod:`repro_torch.runtime.wal`); the serving tier's publish stream
+    will carry it too (ROADMAP Queue 1 item 5.3)."""
+    shard: int
+    clock_vc: np.ndarray     # (n_proc,) int64
     seq: int = -1
 
 

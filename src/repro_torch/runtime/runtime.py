@@ -64,6 +64,27 @@ state must equal the simulator's final state element-wise (updates are
 additive and commutative).  The port's tests assert exactly that against
 the JAX package's simulator.
 
+Observability and durability, as in the reference:
+
+  * ``rt.metrics()`` — one typed tree of every counter
+    (:mod:`repro_torch.runtime.metrics`);
+  * ``RuntimeConfig(trace=...)`` — sampled event tracing into per-thread
+    rings (:mod:`repro_torch.runtime.trace`): the client-side spans
+    (``outbox_flush``, ``send_part``, ``block_clock``, ``block_value``,
+    ``clock``) are recorded here, the wire's in the channels, the shard's
+    in the shard.  A forked client records into a hub of its own, built
+    after the fork, and ships its rings with its final state; the parent
+    adopts them.  ``rt.dump_trace(path)`` writes Chrome trace JSON,
+    ``rt.explain_block()`` names the straggler a worker waited on;
+  * ``RuntimeConfig(wal_dir=...)`` — a per-shard write-ahead log
+    (:mod:`repro_torch.runtime.wal`), and ``snapshot_every`` /
+    ``snapshot_dir`` / ``snapshot_keep_last`` periodic snapshots of the
+    masters (copied off the device), from which
+    :func:`~repro_torch.runtime.snapshot.recover_to_vc` rebuilds the master
+    at any vector clock, replaying the log on the card; ``restore_from``
+    starts a runtime from a snapshot.  The log and the snapshots live in
+    the parent, beside the shards.
+
 ``barrier_reads`` (conformance mode, requires ``threads_per_process == 1``):
 peer updates stamped with the reader's current period or later are staged and
 applied only at the period boundary, so reads see *exactly* the updates the
@@ -91,17 +112,23 @@ from repro_torch.core import controller
 from repro_torch.core.server import RunStats
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.topk_mag import ops as topk_ops
+from repro_torch.runtime import trace as trace_mod
+from repro_torch.runtime import transport as T
 from repro_torch.runtime.config import RuntimeConfig
 from repro_torch.runtime.membership import Partition
-from repro_torch.runtime import transport as T
 from repro_torch.runtime.messages import (SHUTDOWN, AckBatchMsg, Channel,
                                           ClockMarker, ClockMsg, DeliverMsg,
                                           FullyDelivered, ProcDoneMsg,
                                           ShardFinMsg, UpdateMsg,
                                           group_by_channel, pump_inbox)
 from repro_torch.runtime.metrics import (LOAD_BLOCK_CLOCK, LOAD_BLOCK_VALUE,
-                                         LOAD_LEN, LOAD_UPDATES)
+                                         LOAD_LEN, LOAD_UPDATES, MetricsHub,
+                                         RuntimeMetrics)
 from repro_torch.runtime.shard import ServerShard
+from repro_torch.runtime.snapshot import (restore_into, save_snapshot,
+                                          snapshot_files, snapshot_name,
+                                          take_snapshot)
+from repro_torch.runtime.wal import WalWriter, prune_segments
 
 _PROC_ALIAS = "shm"          # what transport="proc" resolves to
 
@@ -304,8 +331,8 @@ class _WorkerFlowMixin:
     surface:
     ``procs``, ``policy``, ``stats``, ``_slock``, ``_total``, ``_chan_ps``,
     ``_send``/``_send_many``/``_msg_done``, ``_next_uid``, ``_check_alive``,
-    ``_violation``, ``_record_error``, ``_note_global_clock``, ``device``
-    and the sizing/config attributes.
+    ``_violation``, ``_record_error``, ``_note_global_clock``, ``device``,
+    ``trace_on``/``_trace`` and the sizing/config attributes.
     """
 
     # ------------------------------------------------------------ worker flow
@@ -362,6 +389,8 @@ class _WorkerFlowMixin:
         per shard channel, FIFO preserved."""
         if not outbox:
             return
+        trc = self._trace if self.trace_on else None
+        t0_ns = time.monotonic_ns() if trc is not None else 0
         part = proc.part
         pairs: List[Tuple[Channel, UpdateMsg]] = []
         for key, d2 in outbox:
@@ -378,11 +407,18 @@ class _WorkerFlowMixin:
                 msg = UpdateMsg(self._next_uid(), w, proc.pid, clock,
                                 key, rows, sub, part.epoch)
                 pairs.append((self._chan_ps[proc.pid][sid], msg))
+                if trc is not None and trc.sampled(msg.uid):
+                    # lifeline start: joined to the shard's apply_part on
+                    # (proc, uid), which the wire already carries
+                    trc.point(trace_mod.EV_SEND, proc.pid, msg.uid, key)
         for chan, msgs in group_by_channel(pairs):
             self._send_many(chan, msgs)
         if pairs:
             with self._slock:
                 self._parts_sent[proc.pid] += len(pairs)
+            if trc is not None:
+                trc.span(trace_mod.EV_FLUSH, t0_ns, proc.pid, clock,
+                         len(pairs))
 
     def _clock_gate(self, w: int, clock: int, proc: ClientProcess) -> None:
         """Block until the delivery frontier admits this period (clock bound)."""
@@ -393,9 +429,17 @@ class _WorkerFlowMixin:
             return
         t0 = time.monotonic()
         blocked = False
+        strag = -1
         with proc.cond:
             while proc.frontier_min() < need:
                 blocked = True
+                if self.trace_on:
+                    # who is holding the frontier right now?  the peer whose
+                    # slowest shard mark is lowest (recomputed each wait lap,
+                    # so the span blames the last straggler observed)
+                    peers = [p for p in range(self.n_proc) if p != proc.pid]
+                    strag = peers[int(proc.marks[peers, :]
+                                      .min(axis=1).argmin())]
                 self._check_alive()
                 proc.cond.wait(0.25)
             if self.check:
@@ -412,6 +456,9 @@ class _WorkerFlowMixin:
             with self._slock:
                 self.stats.block_time_clock += dt
                 proc.m_block_clock += dt
+            if self.trace_on:
+                self._trace.span(trace_mod.EV_BLOCK_CLOCK, int(t0 * 1e9),
+                                 proc.pid, w, strag)
 
     def _apply_update(self, w: int, clock: int, proc: ClientProcess,
                       key: str, delta: np.ndarray) -> np.ndarray:
@@ -471,6 +518,9 @@ class _WorkerFlowMixin:
                             self.stats.violations.append(
                                 f"elastic violation: worker {w} unsynced "
                                 f"norm {un} > {nb}")
+        if blocked and self.trace_on:
+            self._trace.span(trace_mod.EV_BLOCK_VALUE, int(t0 * 1e9),
+                             proc.pid, w, clock)
         return d2
 
     def _on_clock(self, w: int, clock: int, proc: ClientProcess,
@@ -502,6 +552,9 @@ class _WorkerFlowMixin:
                 load[LOAD_UPDATES] = proc.m_updates
                 load[LOAD_BLOCK_CLOCK] = proc.m_block_clock
                 load[LOAD_BLOCK_VALUE] = proc.m_block_value
+            if self.trace_on:
+                for c in advanced:
+                    self._trace.point(trace_mod.EV_CLOCK, proc.pid, c)
             part = proc.part
             pairs = [(self._chan_ps[proc.pid][sid],
                       ClockMsg(proc.pid, c, part.epoch, load))
@@ -554,6 +607,13 @@ class PSRuntime(_WorkerFlowMixin):
         self.check = cfg.check_invariants
         self.barrier_reads = cfg.barrier_reads
         self.metrics_on = bool(cfg.metrics)
+        # tracing tier: one hub for the parent (shards, readers, queue-mode
+        # workers); forked clients build their own after the fork and ship
+        # their rings back with their final state
+        self._trace_cfg = trace_mod.normalize_trace(cfg.trace)
+        self.trace_on = self._trace_cfg is not None
+        self._trace = (trace_mod.TraceHub(self._trace_cfg, "server")
+                       if self.trace_on else None)
 
         # canonical (R, C) float64 state: on the device for the shards, on
         # the host for the process caches; original shapes for reads
@@ -579,10 +639,40 @@ class PSRuntime(_WorkerFlowMixin):
         self._errors: List[BaseException] = []
         self._qcond = threading.Condition()   # guards _inflight
         self._inflight = 0
+        # serializes snapshots against each other (re-entrant: a periodic
+        # snapshot takes one while holding it).  Elastic membership's op
+        # lock takes its place (ROADMAP Queue 1 item 5.4); a shard thread
+        # never blocks on it.
+        self._op_lock = threading.RLock()
 
+        # mid-run periodic snapshots: taken by the shard thread that moves
+        # the applied frontier across a multiple of `snapshot_every` clocks
+        self.snapshot_every = cfg.snapshot_every
+        self.snapshot_dir = cfg.snapshot_dir
+        self.snapshot_keep_last = cfg.snapshot_keep_last
+        self.snapshots: List[Tuple[int, dict]] = []
+        self._snap_lock = threading.Lock()
+        self._next_snap_clock = (cfg.snapshot_every if cfg.snapshot_every
+                                 else (1 << 62))
+        # durability tier: per-shard write-ahead delta log, group-committed
+        # at clock boundaries by the shard threads, in the raw wire codec
+        # over the same key order the shm wire uses
+        self.wal_dir = cfg.wal_dir
+        self.wal_fsync = cfg.wal_fsync or "none"
+        self.wal_segment_bytes = cfg.wal_segment_bytes
+        if cfg.wal_dir:
+            os.makedirs(cfg.wal_dir, exist_ok=True)
+            self._wal_codec = T.RowCodec(list(self._x0.keys()))
+        else:
+            self._wal_codec = None
+
+        self.n_slots = cfg.n_shards
         self.shards = [ServerShard(self, s, x0_dev)
-                       for s in range(self.n_shards)]
+                       for s in range(self.n_slots)]
         del x0_dev                            # the shards hold their blocks
+        self._metrics_hub = MetricsHub(self)
+        if cfg.restore_from is not None:
+            restore_into(self, cfg.restore_from)
         if self._proc_mode:
             self.procs: List[ClientProcess] = []
             self._chan_ps = None              # lives in the children
@@ -613,6 +703,26 @@ class PSRuntime(_WorkerFlowMixin):
     # ------------------------------------------------------------- plumbing
     def proc_of(self, worker: int) -> int:
         return worker // self.tpp
+
+    def _make_wal(self, sid: int):
+        """Per-shard :class:`~repro_torch.runtime.wal.WalWriter`, or None
+        when the durability tier is off (called once per slot by
+        ServerShard)."""
+        if not self.wal_dir:
+            return None
+        return WalWriter(self.wal_dir, sid, self._wal_codec, self.n_proc,
+                         fsync=self.wal_fsync,
+                         segment_bytes=self.wal_segment_bytes)
+
+    def _close_wals(self) -> None:
+        """Seal every shard's WAL at clean teardown (shard threads are
+        joined, so the final vc and state are quiescent).  A crash path
+        never gets here by design: it leaves an unsealed or torn tail,
+        which :func:`repro_torch.runtime.wal.read_segment` recovers to the
+        last complete record."""
+        for s in self.shards:
+            if s.wal is not None:
+                s.wal.seal(s.clock_vc)
 
     def _next_uid(self) -> int:
         return next(self._uid)
@@ -712,13 +822,15 @@ class PSRuntime(_WorkerFlowMixin):
         # parent side: route each client->shard stream into the shard inbox,
         # hand each shard a write channel back to every client
         self._chan_sp = [[None] * self.n_proc for _ in range(self.n_shards)]
+        trc = self._trace
         if self.transport_kind == "tcp":
             self._conns = self._transport.accept_all(self._deadline)
             for (p, s), conn in self._conns.items():
-                self._chan_sp[s][p] = T.WireChannel(f"s{s}->p{p}", conn.write)
+                self._chan_sp[s][p] = T.WireChannel(f"s{s}->p{p}", conn.write,
+                                                    trace=trc)
                 self._readers.append(T.start_reader(
                     f"rx-p{p}s{s}", conn.read_chunk, self.shards[s].inbox,
-                    self._record_error))
+                    self._record_error, trace=trc))
         else:
             codec = (T.RowCodec(list(self._x0.keys())) if self.zero_copy
                      else None)
@@ -732,23 +844,24 @@ class PSRuntime(_WorkerFlowMixin):
                         f"s{s}->p{p}",
                         T.ring_parts_writer(edge.s2c, self._deadline),
                         max_frame=self._shm_max_frame, codec=codec,
-                        on_flush=lambda w=bell_w: T.ShmEdge.ring_bell(w))
+                        on_flush=lambda w=bell_w: T.ShmEdge.ring_bell(w),
+                        trace=trc)
                     self._readers.append(T.start_view_reader(
                         f"rx-p{p}s{s}",
                         T.RingViewReader(edge.c2s, codec, edge.c2s_bell[0],
-                                         self._reader_stop),
+                                         self._reader_stop, trace=trc),
                         self.shards[s].inbox, self._record_error))
                 else:
                     self._chan_sp[s][p] = T.WireChannel(
                         f"s{s}->p{p}",
                         T.ring_writer(edge.s2c, edge.s2c_bell[1],
                                       self._deadline),
-                        max_frame=self._shm_max_frame)
+                        max_frame=self._shm_max_frame, trace=trc)
                     self._readers.append(T.start_reader(
                         f"rx-p{p}s{s}",
                         T.ring_reader(edge.c2s, edge.c2s_bell[0],
                                       self._reader_stop),
-                        self.shards[s].inbox, self._record_error))
+                        self.shards[s].inbox, self._record_error, trace=trc))
         for s in self.shards:
             s.thread.start()
 
@@ -780,6 +893,7 @@ class PSRuntime(_WorkerFlowMixin):
             s.inbox.put(SHUTDOWN)
         for th in [p.thread for p in self.procs] + [s.thread for s in self.shards]:
             th.join(timeout=5.0)
+        self._close_wals()
         self.stats.sim_time = time.monotonic() - self._t0
         if self._errors:
             raise RuntimeError(
@@ -819,6 +933,7 @@ class PSRuntime(_WorkerFlowMixin):
                 s.inbox.put(SHUTDOWN)
             for s in self.shards:
                 s.thread.join(timeout=5.0)
+            self._close_wals()
         finally:
             self._finished = True
             self._cleanup_transport()
@@ -868,6 +983,8 @@ class PSRuntime(_WorkerFlowMixin):
                 self._total[k] += v
             self._parts_sent[pid] = fin.get("parts_sent", 0)
             self._final_caches[pid] = fin["cache"]
+            if fin.get("trace") and self._trace is not None:
+                self._trace.adopt(fin["trace"])
             clock_times.append(st.clock_times)
         if clock_times and all(clock_times):
             n = min(len(c) for c in clock_times)
@@ -898,6 +1015,131 @@ class PSRuntime(_WorkerFlowMixin):
         if self._proc_mode:
             return any(c.is_alive() for c in self._children)
         return any(t.is_alive() for t in self._workers)
+
+    def completed_clock(self) -> int:
+        """Global applied-clock frontier: periods completed by every
+        process and applied by every active shard (a cheap racy read,
+        monotone)."""
+        done = None
+        for s in self.shards:
+            vc = s.vc_if_active()
+            if vc is not None:
+                lo = int(vc.min()) + 1
+                done = lo if done is None else min(done, lo)
+        return done or 0
+
+    # ------------------------------------------------------------- metrics
+    def metrics(self) -> RuntimeMetrics:
+        """One typed snapshot of every runtime counter
+        (:mod:`repro_torch.runtime.metrics`).  Windowed rates are measured
+        against the previous call."""
+        return self._metrics_hub.collect()
+
+    # ------------------------------------------------------------- tracing
+    def _require_trace(self) -> trace_mod.TraceHub:
+        if self._trace is None:
+            raise RuntimeError(
+                "tracing is off; construct the runtime with "
+                "RuntimeConfig(trace=True) (or a sample rate / TraceConfig) "
+                "to record events")
+        return self._trace
+
+    def dump_trace(self, path: str) -> dict:
+        """Export the recorded event log as Chrome trace-event JSON (load
+        it in Perfetto's UI).  One track per thread per process; update
+        lifelines ride flow events (client send -> shard apply).  Forked
+        clients' rings ship only at quiesce, so call after :meth:`wait` to
+        see the client side.  Returns ``{"events":, "dropped":, "path":}``."""
+        return trace_mod.dump_chrome_trace(self._require_trace(), path)
+
+    def explain_block(self, process=None, worker=None) -> dict:
+        """Attribute recorded clock/value stalls to the straggler process
+        the workers waited on (requires tracing)."""
+        return trace_mod.explain_block(self._require_trace(),
+                                       process=process, worker=worker)
+
+    def explain_read(self, result) -> dict:
+        """Why a gateway read landed where it did: needs the serving tier
+        (ROADMAP Queue 1 item 5.3), and raises until it is ported."""
+        return trace_mod.explain_read(result)
+
+    def staleness_timeline(self, shard: int) -> dict:
+        """Replica staleness over time for one shard: needs the serving
+        tier (ROADMAP Queue 1 item 5.3), and raises until it is ported."""
+        bound = (self.policy.staleness if self.policy.clock_bounded
+                 else None)
+        return trace_mod.staleness_timeline(self._require_trace(), shard,
+                                            bound=bound)
+
+    # ------------------------------------------------------------- snapshots
+    def snapshot(self) -> dict:
+        """Master shard state as a restorable snapshot, copied to the host
+        (see :mod:`repro_torch.runtime.snapshot`)."""
+        return take_snapshot(self)
+
+    def _maybe_periodic_snapshot(self) -> None:
+        """Called by a shard thread after its applied vector clock moved:
+        take one snapshot each time the global applied frontier — completed
+        clocks fully applied on every shard by every process — crosses a
+        multiple of ``snapshot_every``.  Boundary-*triggered*, not
+        barrier-exact: updates of later periods already in flight may be
+        included, exactly like a parameter server checkpointing without a
+        barrier (snapshot.py module doc)."""
+        if not self.snapshot_every or self._finished:
+            return
+        # never block a shard thread on the op lock: skip this boundary and
+        # let the next ClockMsg re-trigger
+        if not self._op_lock.acquire(blocking=False):
+            return
+        try:
+            # racy per-entry reads are fine: the frontier is monotone, so a
+            # stale read only delays the trigger to the next ClockMsg
+            done = self.completed_clock()
+            if done < self._next_snap_clock:
+                return
+            with self._snap_lock:
+                if done < self._next_snap_clock:   # another shard was first
+                    return
+                while self._next_snap_clock <= done:
+                    self._next_snap_clock += self.snapshot_every
+                snap = self.snapshot()
+                self.snapshots.append((done, snap))
+                if self.snapshot_dir:
+                    os.makedirs(self.snapshot_dir, exist_ok=True)
+                    save_snapshot(os.path.join(self.snapshot_dir,
+                                               snapshot_name(done)), snap)
+                if self.snapshot_keep_last:
+                    self._prune_retained()
+        finally:
+            self._op_lock.release()
+
+    def _prune_retained(self) -> None:
+        """Retention (``snapshot_keep_last=k``): drop periodic snapshots
+        beyond the newest k — in memory and on disk — then drop WAL
+        segments fully covered by the *oldest retained* snapshot, so every
+        retained snapshot still recovers exactly (genesis replay stops
+        working past the horizon: retention trades point-in-time depth for
+        disk).  Caller holds ``_snap_lock``."""
+        k = self.snapshot_keep_last
+        if len(self.snapshots) > k:
+            del self.snapshots[:len(self.snapshots) - k]
+        if self.snapshot_dir:
+            for _, path in snapshot_files(self.snapshot_dir)[k:]:
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+        if self.wal_dir and self.snapshots:
+            wal = self.snapshots[0][1].get("wal")
+            if wal is not None:
+                prune_segments(self.wal_dir,
+                               {sid: int(p)
+                                for sid, p in enumerate(wal["parts"])})
+
+    def latest_snapshot(self):
+        """The most recent periodic snapshot, or None."""
+        with self._snap_lock:
+            return self.snapshots[-1][1] if self.snapshots else None
 
     # ------------------------------------------------------------- reads
     def read(self, key: str, process: int = 0) -> np.ndarray:
@@ -1000,6 +1242,12 @@ class _ClientHost(_WorkerFlowMixin):
         self.barrier_reads = rt.barrier_reads
         self.prioritize = rt.prioritize
         self.metrics_on = rt.metrics_on
+        # a hub of this process's own: the parent's hub, copied by the
+        # fork, is never touched here (its rings are the parent's, and its
+        # lock may have been copied held)
+        self.trace_on = rt.trace_on
+        self._trace = (trace_mod.TraceHub(rt._trace_cfg, f"client-p{pid}")
+                       if rt.trace_on else None)
         self.n_shards = rt.n_shards
         self.n_proc = rt.n_proc
         self.tpp = rt.tpp
@@ -1026,14 +1274,16 @@ class _ClientHost(_WorkerFlowMixin):
         self.procs = {pid: self.proc}
         self._readers: List[threading.Thread] = []
         chans: List[T.WireChannel] = []
+        trc = self._trace
         if rt.transport_kind == "tcp":
             self._conns = rt._transport.connect(pid)
             for s in range(rt.n_shards):
                 conn = self._conns[s]
-                chans.append(T.WireChannel(f"p{pid}->s{s}", conn.write))
+                chans.append(T.WireChannel(f"p{pid}->s{s}", conn.write,
+                                           trace=trc))
                 self._readers.append(T.start_reader(
                     f"rx-s{s}", conn.read_chunk, self.proc.inbox,
-                    self._record_error))
+                    self._record_error, trace=trc))
         else:
             self._stop = threading.Event()
             codec = (T.RowCodec(list(self._x0.keys())) if rt.zero_copy
@@ -1046,22 +1296,23 @@ class _ClientHost(_WorkerFlowMixin):
                         f"p{pid}->s{s}",
                         T.ring_parts_writer(edge.c2s, self._deadline),
                         max_frame=rt._shm_max_frame, codec=codec,
-                        on_flush=lambda w=bell_w: T.ShmEdge.ring_bell(w)))
+                        on_flush=lambda w=bell_w: T.ShmEdge.ring_bell(w),
+                        trace=trc))
                     self._readers.append(T.start_view_reader(
                         f"rx-s{s}",
                         T.RingViewReader(edge.s2c, codec, edge.s2c_bell[0],
-                                         self._stop),
+                                         self._stop, trace=trc),
                         self.proc.inbox, self._record_error))
                 else:
                     chans.append(T.WireChannel(
                         f"p{pid}->s{s}",
                         T.ring_writer(edge.c2s, edge.c2s_bell[1],
                                       self._deadline),
-                        max_frame=rt._shm_max_frame))
+                        max_frame=rt._shm_max_frame, trace=trc))
                     self._readers.append(T.start_reader(
                         f"rx-s{s}", T.ring_reader(edge.s2c, edge.s2c_bell[0],
                                                   self._stop),
-                        self.proc.inbox, self._record_error))
+                        self.proc.inbox, self._record_error, trace=trc))
         self._channels = chans
         self._chan_ps = {pid: chans}
 
@@ -1156,6 +1407,8 @@ class _ClientHost(_WorkerFlowMixin):
             "cache": self.proc.cache,
             "parts_sent": int(self._parts_sent[self.pid]),
             "errors": [repr(e) for e in self._errors],
+            "trace": (self._trace.export() if self._trace is not None
+                      else None),
         }
 
 

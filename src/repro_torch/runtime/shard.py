@@ -42,6 +42,34 @@ complete.  On the shm transport with the zero-copy wire, an update part's
 copies them to the device before the batch's frame pins are released, and
 anything retained past the batch is materialized first.
 
+Applied vector clock: ``clock_vc[p]`` is the highest period of process p
+whose updates this shard has applied — exact because ClockMsg is
+FIFO-after the period's updates on the p->shard channel.  Snapshots stamp
+each shard's state with it, and the write-ahead log stamps its group
+commits with it.
+
+Durability tier (:mod:`repro_torch.runtime.wal`): with
+``RuntimeConfig(wal_dir=)`` the shard appends every applied update part to
+a per-slot write-ahead log — ``WalWriter.log_parts`` at the end of the
+apply's lock section (so the log marks stay consistent with the dense
+state), and ``commit`` (group commit + vc stamp) at the end of a batch in
+which the applied vector clock moved, followed by the runtime's periodic
+snapshot check.  The frames are encoded from the host arrays before the
+batch's frame pins are released.  :meth:`durability_cut` copies the
+masters to the host with the vc and the log marks under one lock.
+
+Exactly-once apply: :class:`UidDedup` records every applied part and drops
+exact duplicates by uid under the per-process clock frontier instead of
+double-applying.  The drop filter is armed from the start on WAL runs (log
+replay is at-least-once by design).
+
+Tracing (:mod:`repro_torch.runtime.trace`): with ``rt.trace_on`` the shard
+records a ``shard_batch`` span per batch, an ``apply_part`` point per
+sampled part, ``lock_wait``, ``apply``, ``wal_append`` and ``wal_commit``
+spans.  On the card the ``apply`` span ends after a synchronize of the
+current stream, so it times the apply and not the launches' enqueue; with
+tracing off the apply path gains no synchronize.
+
 ESSP (eager server push, arXiv:1410.8043): under ``Policy("essp", ...)``
 the shard parks each applied part's fan-out :class:`DeliverMsg`\\ s in a
 per-destination hold instead of sending immediately, and releases the
@@ -54,14 +82,16 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from collections import defaultdict, deque
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import controller
 from repro_torch.kernels.ps_apply import ops as apply_ops
+from repro_torch.runtime import trace as trace_mod
 from repro_torch.runtime.messages import (SHUTDOWN, AckBatchMsg, Channel,
                                           ClockMarker, ClockMsg, DeliverMsg,
                                           FullyDelivered, ProcDoneMsg,
@@ -86,9 +116,11 @@ class UidDedup:
     per-process table and pruned as the frontier advances, bounding memory
     to the in-flight window.
 
-    The queue transport delivers exactly once, so the shard only records
-    here; the tiers that redeliver (WAL replay, membership resends) arm the
-    drop filter when they are ported.
+    The transports deliver exactly once, so a shard without a WAL only
+    records here; a WAL run arms the drop filter from the start (log replay
+    is at-least-once by design), and so will membership's cross-epoch
+    resends (ROADMAP Queue 1 item 5.4).  :func:`~repro_torch.runtime.
+    snapshot.recover_to_vc` runs one per slot over the replayed log.
     """
 
     def __init__(self, n_proc: int):
@@ -120,7 +152,7 @@ class ServerShard:
         self.rt = rt
         self.sid = sid
         self.inbox: queue.Queue = queue.Queue()
-        self.lock = threading.Lock()      # guards .dense
+        self.lock = threading.Lock()      # guards .dense/.clock_vc
         self.part = rt.partition
         self.epoch = self.part.epoch
         # master state: one dense (n_owned_rows, C) float64 tensor per key on
@@ -142,13 +174,26 @@ class ServerShard:
         self._outbox: List[Tuple[Channel, object]] = []
         # zero-lost/zero-duplicated audit: update parts applied, per origin
         self.applied_parts = np.zeros(rt.n_proc, dtype=np.int64)
+        # durability tier: per-slot write-ahead log (None unless the runtime
+        # was built with wal_dir)
+        self.wal = rt._make_wal(sid)
+        # at-least-once dedup: the per-process frontier and uid tables are
+        # always kept current; the drop filter arms where duplicates can
+        # exist (WAL runs: log replay)
         self._dedup = UidDedup(rt.n_proc)
+        self._dedup_armed = self.wal is not None
+        # applied per-process vector clock (guarded by .lock); _vc_dirty:
+        # it moved in this batch (group commit + snapshot check at its end)
+        self.clock_vc = np.full(rt.n_proc, -1, dtype=np.int64)
+        self._vc_dirty = False
         # ESSP (eager server push): applied deltas held per destination and
         # released one coalesced batch per peer at every clock boundary
         self._essp_hold: Dict[int, List[DeliverMsg]] = {}
         # load counters: single-writer (this shard's thread), read racily.
         # proc_load maps pid -> (clock, counters) from the ClockMsg piggyback
         self.m_rows_applied = 0            # row-updates applied
+        self.m_bytes_applied = 0           # delta bytes applied
+        self.m_lock_wait = 0.0             # cumulative dense-lock wait (s)
         self.proc_load: Dict[int, Tuple[int, np.ndarray]] = {}
         # multi-process quiesce: processes that sent ProcDone; fin sent once
         self._done_procs: set = set()
@@ -166,6 +211,7 @@ class ServerShard:
         rt = self.rt
         shutdown = False
         done = 0
+        t_batch = time.monotonic_ns() if rt.trace_on else 0
         run: List[UpdateMsg] = []
         for msg in batch:
             if msg is SHUTDOWN:
@@ -190,8 +236,11 @@ class ServerShard:
             self._flush_updates(run)
             if rt._proc_mode and not shutdown:
                 self._maybe_fin()
+            self._on_boundary()
         except BaseException as e:
             rt._record_error(e)
+        if rt.trace_on and done:
+            rt._trace.span(trace_mod.EV_SHARD_BATCH, t_batch, self.sid, done)
         # zero-copy discipline: every view consumed by the applies above is
         # done with, and everything retained (queued/pending/outbox) was
         # materialized — release the frame pins BEFORE the blocking outbox
@@ -229,6 +278,12 @@ class ServerShard:
             for uid in msg.uids:
                 self._ack_uid(int(uid))
         elif isinstance(msg, ClockMsg):
+            # applied vector clock: the process's period-<=clock updates are
+            # FIFO-before this message, so they are already in .dense
+            with self.lock:
+                self.clock_vc[msg.process] = max(
+                    self.clock_vc[msg.process], msg.clock)
+            self._vc_dirty = True
             # every part of the period is FIFO-before this message:
             # the dedup frontier may advance and prune its uid table
             self._dedup.advance(msg.process, msg.clock)
@@ -277,16 +332,45 @@ class ServerShard:
         then route each through the (per-message) delivery state machine."""
         if not run:
             return
-        for m in run:                   # keeps the uid tables current
-            self._dedup.fresh(m.uid, m.process, m.ts)
+        rt = self.rt
+        # record-and-test every part; with the filter armed, drop exact
+        # duplicates before they touch the dense state, the audit counters
+        # or the WAL (dropped messages' frame pins release with the batch)
+        fresh = [self._dedup.fresh(m.uid, m.process, m.ts) for m in run]
+        if self._dedup_armed:
+            run = [m for m, f in zip(run, fresh) if f]
+            if not run:
+                return
+        trc = rt._trace if rt.trace_on else None
         by_key: Dict[str, List[UpdateMsg]] = {}
-        n_rows = 0
+        n_rows = n_bytes = 0
         for msg in run:
             by_key.setdefault(msg.key, []).append(msg)
             self.applied_parts[msg.process] += 1
             n_rows += msg.rows.size
+            n_bytes += msg.nbytes
+            if trc is not None and trc.sampled(msg.uid):
+                # lifeline landing: joins the client's send_part on
+                # (proc, uid).  Fresh parts only, so with sample=1.0 these
+                # points reconcile exactly with sum(applied_parts).
+                trc.point(trace_mod.EV_APPLY_PART, msg.process, msg.uid,
+                          self.sid)
+        t_apply = time.monotonic_ns() if trc is not None else 0
+        # apply-lock wait: how long the dense blocks were contended (master
+        # reads, snapshot cuts); one monotonic() pair per batch, only with
+        # metrics or tracing on
+        t_lock = time.monotonic() if (rt.metrics_on or trc is not None) \
+            else 0.0
         with self.lock:
+            if t_lock:
+                dt_lock = time.monotonic() - t_lock
+                if rt.metrics_on:
+                    self.m_lock_wait += dt_lock
+                if trc is not None and dt_lock > 1e-6:
+                    trc.span(trace_mod.EV_LOCK_WAIT, int(t_lock * 1e9),
+                             self.sid)
             self.m_rows_applied += n_rows
+            self.m_bytes_applied += n_bytes
             A = self.part.A
             for key, msgs in by_key.items():
                 dense = self.dense[key]
@@ -326,6 +410,26 @@ class ServerShard:
                     # (stable) and walks each row's run in order; unique rows
                     # are runs of one, bitwise the same result.
                     apply_ops.scatter_add_(dense, idx, d, rows_checked=True)
+            if self.wal is not None:
+                # WAL append FIFO-behind the apply, inside the same lock
+                # section so the log marks (parts/applied/max_ts) stay
+                # consistent with the dense state a snapshot cuts.  The
+                # frames are encoded to owned bytes here: under the shm
+                # zero-copy wire the parts' arrays are views into the
+                # client's ring, valid only until _handle_batch releases
+                # the batch's frame pins.  They are written out at the
+                # next clock-boundary group commit.
+                t_wal = time.monotonic_ns() if trc is not None else 0
+                self.wal.log_parts(run)
+                if trc is not None:
+                    trc.span(trace_mod.EV_WAL_APPEND, t_wal, self.sid,
+                             len(run))
+        if trc is not None:
+            # the apply is done when its span ends: the launches above are
+            # asynchronous on the card, so wait for the stream first
+            if self.rt.device.type == "cuda":
+                torch.cuda.current_stream(self.rt.device).synchronize()
+            trc.span(trace_mod.EV_APPLY, t_apply, self.sid, len(run), n_rows)
         for msg in run:
             self._route_delivery(msg)
 
@@ -423,6 +527,38 @@ class ServerShard:
             else:
                 break
 
+    # --------------------------------------------------- clock boundaries
+    def _on_boundary(self) -> None:
+        """End of a batch in which the applied vector clock moved: group
+        commit of the WAL (pending delta frames + a vc stamp, FIFO on disk)
+        and then the runtime's periodic snapshot check (WAL-before-snapshot:
+        the commit precedes any snapshot this boundary triggers)."""
+        if not self._vc_dirty:
+            return
+        self._vc_dirty = False
+        if self.wal is not None and self.part.owns(self.sid):
+            trc = self.rt._trace if self.rt.trace_on else None
+            vc = self.vc_snapshot()
+            t_wal = time.monotonic_ns() if trc is not None else 0
+            self.wal.commit(vc)
+            if trc is not None:
+                trc.span(trace_mod.EV_WAL_COMMIT, t_wal, self.sid,
+                         int(vc.min()))
+        self.rt._maybe_periodic_snapshot()
+
+    def vc_snapshot(self) -> np.ndarray:
+        """The applied per-process vector clock (consistent copy)."""
+        with self.lock:
+            return self.clock_vc.copy()
+
+    def vc_if_active(self) -> Optional[np.ndarray]:
+        """The applied vc, or None while this slot owns no rows (ownership
+        and vc read under one lock)."""
+        with self.lock:
+            if not self.part.owns(self.sid):
+                return None
+            return self.clock_vc.copy()
+
     # ------------------------------------------------------------- row state
     def read_rows(self, key: str, out: np.ndarray) -> None:
         """Scatter this shard's live rows of `key` into the full (R, C) host
@@ -436,10 +572,34 @@ class ServerShard:
         """Snapshot payload: per key, global row ids + host copies of the
         dense values."""
         with self.lock:
-            return {key: {"rows": self.part.rows_of(key, self.sid).copy(),
-                          "values": self.dense[key].to(
-                              "cpu", copy=True).numpy()}
-                    for key in self.dense}
+            return self._state_locked()
+
+    def _state_locked(self) -> Dict[str, Dict[str, np.ndarray]]:
+        # The device-to-host copy runs on the current stream, which for
+        # every thread of this process is the default stream: the same one
+        # the apply's ps_apply launches went to.  So the copy waits for
+        # every apply queued before it, and returns the blocks as the
+        # applies under this lock left them.  Launching the applies on a
+        # stream of their own would break that.
+        return {key: {"rows": self.part.rows_of(key, self.sid).copy(),
+                      "values": self.dense[key].to("cpu", copy=True).numpy()}
+                for key in self.dense}
+
+    def durability_cut(self):
+        """``(state, vc, wal marks)`` under ONE lock acquisition.
+
+        The WAL append in :meth:`_flush_updates` bumps the log marks in
+        the same lock section as the dense apply, so a cut taken here is
+        an exact per-slot log prefix: every part counted in ``marks`` is
+        folded into ``state``, and none beyond.  That is what lets
+        :func:`repro_torch.runtime.snapshot.recover_to_vc` skip replay of
+        the covered prefix without double-applying or losing a part.
+        """
+        with self.lock:
+            state = self._state_locked()
+            vc = self.clock_vc.copy()
+            marks = self.wal.marks() if self.wal is not None else None
+        return state, vc, marks
 
     def load_state(self, state: Dict[str, Dict[str, np.ndarray]]) -> None:
         """Adopt a payload taken by :meth:`state` (host to device)."""

@@ -58,9 +58,13 @@ would need real acquire/release barriers, and pure Python cannot express
 them — so :func:`require_tso` *refuses to construct* the shm backend there
 (clear error pointing at ``transport="tcp"``).
 
+Tracing.  Every channel and reader takes an optional
+:class:`~repro_torch.runtime.trace.TraceHub` (``trace=``) and records one
+``wire_write`` span per ``send_many`` and one ``wire_decode`` span per
+decoded batch; with ``trace=None`` the only cost is one ``is None`` test.
+
 Not here yet: the non-blocking sends of the serving tier's publish path
-(``try_send_many``, a sink's free-room probe; ROADMAP Queue 1 item 5.3) and
-the tracing spans around wire writes and decodes (item 5.1).
+(``try_send_many``, a sink's free-room probe; ROADMAP Queue 1 item 5.3).
 """
 from __future__ import annotations
 
@@ -81,6 +85,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.runtime import trace as trace_mod
 from repro_torch.runtime.messages import DeliverMsg, UpdateMsg
 
 log = logging.getLogger("repro_torch.runtime.transport")
@@ -433,12 +438,14 @@ class RingViewReader:
     """
 
     def __init__(self, ring: "ShmRing", codec: RowCodec, bell_r: int,
-                 stop: threading.Event):
+                 stop: threading.Event,
+                 trace: Optional["trace_mod.TraceHub"] = None):
         self.ring = ring
         self.codec = codec
         self.bell_r = bell_r
         self.stop = stop
         self.closed = False
+        self.trace = trace
         self._warned_stale = False
         self._pos = 0          # absolute decode cursor
         self._released = 0     # absolute head we last published
@@ -472,6 +479,7 @@ class RingViewReader:
     def _decode_ready(self) -> list:
         out: list = []
         cap = self.ring.capacity
+        t0 = time.monotonic_ns() if self.trace is not None else 0
         while not self.closed:
             tail = self.ring._tail()
             # validate the cross-process cursor read exactly like
@@ -523,6 +531,9 @@ class RingViewReader:
                     self._pos = end
                     self._advance_locked()
             out.extend(msgs)
+        if out and self.trace is not None:
+            self.trace.span(trace_mod.EV_WIRE_DECODE, t0, len(out), 0,
+                            threading.current_thread().name)
         return out
 
     def read_msgs(self) -> Optional[list]:
@@ -654,7 +665,8 @@ class WireChannel:
     def __init__(self, name: str, write: Callable[[bytes], None],
                  max_frame: Optional[int] = None,
                  codec: Optional[RowCodec] = None,
-                 on_flush: Optional[Callable[[], None]] = None):
+                 on_flush: Optional[Callable[[], None]] = None,
+                 trace: Optional["trace_mod.TraceHub"] = None):
         self.name = name
         self._write = write
         self._max_frame = max_frame    # soft cap: split batches above this
@@ -663,6 +675,7 @@ class WireChannel:
         self._codec = codec            # raw row-block encoding (zero-copy)
         self._on_flush = on_flush      # rung once per send_many, not per
                                        # frame (batched doorbell wakes)
+        self._trace = trace
 
     def send(self, msg) -> None:
         self.send_many([msg])
@@ -670,6 +683,8 @@ class WireChannel:
     def send_many(self, msgs: list) -> None:
         if not msgs:
             return
+        trc = self._trace
+        t0 = time.monotonic_ns() if trc is not None else 0
         with self._lock:
             for m in msgs:
                 m.seq = self._seq
@@ -677,6 +692,8 @@ class WireChannel:
             self._write_frames(msgs)
             if self._on_flush is not None:
                 self._on_flush()
+        if trc is not None:
+            trc.span(trace_mod.EV_WIRE_WRITE, t0, len(msgs), 0, self.name)
 
     def _write_frames(self, msgs: list) -> None:
         """Encode and write, halving batches that exceed the frame cap (a
@@ -718,10 +735,12 @@ class WireChannel:
 
 def _reader_loop(read_chunk: Callable[[], Optional[bytes]],
                  inbox: queue.Queue,
-                 on_error: Callable[[BaseException], None]) -> None:
+                 on_error: Callable[[BaseException], None],
+                 trace: Optional["trace_mod.TraceHub"] = None) -> None:
     """Pump a byte source into an inbox until EOF. `read_chunk` returns b''
     to mean try-again (ring empty) and None on hard end-of-stream."""
     dec = FrameDecoder()
+    tname = threading.current_thread().name
     try:
         while not dec.closed:
             chunk = read_chunk()
@@ -729,7 +748,11 @@ def _reader_loop(read_chunk: Callable[[], Optional[bytes]],
                 break
             if not chunk:
                 continue
-            for msg in dec.feed(chunk):
+            t0 = time.monotonic_ns() if trace is not None else 0
+            msgs = dec.feed(chunk)
+            if msgs and trace is not None:
+                trace.span(trace_mod.EV_WIRE_DECODE, t0, len(msgs), 0, tname)
+            for msg in msgs:
                 inbox.put(msg)
     except BaseException as e:      # surfaced into RunStats by the runtime
         on_error(e)
@@ -738,9 +761,10 @@ def _reader_loop(read_chunk: Callable[[], Optional[bytes]],
 def start_reader(name: str, read_chunk: Callable[[], Optional[bytes]],
                  inbox: queue.Queue,
                  on_error: Callable[[BaseException], None],
+                 trace: Optional["trace_mod.TraceHub"] = None,
                  ) -> threading.Thread:
     t = threading.Thread(target=_reader_loop,
-                         args=(read_chunk, inbox, on_error),
+                         args=(read_chunk, inbox, on_error, trace),
                          name=name, daemon=True)
     t.start()
     return t

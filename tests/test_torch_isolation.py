@@ -13,7 +13,7 @@ import torch
 from repro_torch.apps import lda
 from repro_torch.core import policies
 from repro_torch.data import synthetic_corpus
-from repro_torch.runtime import PSRuntime, RuntimeConfig
+from repro_torch.runtime import PSRuntime, RuntimeConfig, recover_to_vc
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -81,6 +81,9 @@ def test_entry_points_default_to_the_card():
                     n_clocks=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lda.run_lda_spmd(corpus, n_topics=2, n_workers=2, n_clocks=1)
+    # WAL recovery replays on the card unless the caller asks for the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recover_to_vc({"a": np.zeros((3, 2))}, "no-such-wal-dir", n_proc=1)
 
 
 @pytest.mark.parametrize("device", ["cuda", "cuda:0"])
