@@ -68,6 +68,39 @@ Phases, each printed as one JSON line:
            points = apply_part points = sum(applied_parts), 0 dropped; the
            metrics' parts_applied and wal_parts equal to it, and wal_bytes
            to the segment files' sizes.
+  replicas the serving tier at full width.  Main run: the wire phase's run
+           (shm, zero-copy, 4 forked clients, 2 shards, ssp(1), 3 clocks,
+           the 50,000 x 1,000 f64 masters on the card) with a ReadGateway
+           of 2 replicas over the shm serving transport, built after
+           start() (each replica's buffers f64 on the card, every published
+           delta batch landed through ps_apply); a reader thread in this
+           process cycles SLOs 0, 1, None and fresh over word_topic and
+           topic, paced by 1 ms, each read escalating to the master after
+           5 s without a qualifying replica (the reference tests' read
+           deadline), and a second thread adds a third replica once the
+           applied frontier reaches clock 1 (bootstrapped in-stream: one
+           state frame a shard through its ring).  The launch counters set to 0
+           just before start() and read after the replicas caught up;
+           torch.profiler entered once the clients are forked.  Then tcp
+           serving on a transport="tcp" runtime, 1 replica, 2 clocks.
+           Prints reads by source and SLO, escalations, read latency p50
+           and p99 by source, replica bytes ingested and delta messages,
+           pub_drops and pub_resyncs, ps_apply's launches split into the
+           replicas' ingest and the shards', its kernel's events in the
+           profile against its launches in the profiled window, the
+           device's busy and idle share, H2D and D2H seconds, peak device
+           memory, the serving rings' capacity, and the wire phase's wall
+           from the same process.  Checks: every read's measured staleness
+           within its SLO (0 for fresh); no violations, no replica errors
+           or FIFO violations; the master and every shipped cache x0 +
+           sum(updates); at quiesce every replica's raw buffers f64 on the
+           card and bitwise the master, and a slo=0 read from every replica
+           equal to it; the third replica joined before the frontier
+           reached the last clock and ingested deltas published after its
+           bootstrap;
+           ps_apply launched by replica ingest and by the shards, with its
+           profile events equal to its launches in the window; topk_mag
+           not launched.
   lda_spmd the second path: run_lda_spmd(device="cuda") on the same corpus,
            4 replicas of the 50,000 x 1,000 and 1,000 float32 tables stacked
            on the card, 3 clocks under cvap(2, v), the vap_accum launch
@@ -121,7 +154,10 @@ Phases, each printed as one JSON line:
            other places through 38 and 24 layers).
   kernels  each CUDA kernel against its plain PyTorch version, at the
            shapes the paths gave it (ps_apply's median call per table, no
-           sentinel rows, as the shard sends none; MF's too; the serve
+           sentinel rows, as the shard sends none; MF's too; replica
+           ingest's on the full-key buffers, marked site "replica
+           ingest", whose time, bound and index_add_ time the kernel
+           table's ps_apply row carries as replica_ingest; the serve
            path's first call for the LLM kernels, and for rglru_scan also
            the float32 tail's first call) and at stress shapes
            (tests/test_kernels.py's cases for the LLM kernels, and for
@@ -979,6 +1015,7 @@ def path_run(dev, keep_first=False):
     torch.cuda.reset_peak_memory_stats(dev)
     for m in mods.values():
         m.launches = 0
+    apply_ops.launches_by_site.clear()
     for e in rg_ops.launches_by_entry:
         rg_ops.launches_by_entry[e] = 0
     try:
@@ -988,6 +1025,7 @@ def path_run(dev, keep_first=False):
         for k in KERNELS:
             setattr(mods[k], attrs[k], orig[k])
         run["launches"] = {k: m.launches for k, m in mods.items()}
+        run["ps_apply_by_site"] = dict(apply_ops.launches_by_site)
 
 
 def run_lda_phase(dev, corpus, corpus_s):
@@ -1392,6 +1430,314 @@ def run_durable_phase(dev, corpus, wire_wall_s):
         return launches, replay_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# the serving tier: the read mix a reader thread cycles through (every SLO
+# over both keys), each read's deadline before it escalates (the reference
+# tests' 5 s), the replicas of the main run, and the tcp run's depth
+SERVE_SLOS = (0, 1, None, "fresh")
+SERVE_KEYS = ("word_topic", "topic")
+READ_TIMEOUT_S = 5.0
+REPLICAS_MAIN = 2
+REPLICAS_TCP_CLOCKS = 2
+CATCH_UP_S = 120.0
+
+
+def _percentiles(xs):
+    return ({"p50": float(np.percentile(xs, 50)),
+             "p99": float(np.percentile(xs, 99)), "n": len(xs)}
+            if xs else None)
+
+
+def _serve_reads(rt, gw, out, stop):
+    """The reader thread: cycle every SLO over both keys while the run is
+    live, each read's measured staleness held to its SLO."""
+    import itertools
+
+    from repro_torch.runtime import FRESH
+
+    mix = itertools.cycle(itertools.product(SERVE_SLOS, SERVE_KEYS))
+    try:
+        while rt.running and not stop.is_set():
+            slo, key = next(mix)
+            slo = FRESH if slo == "fresh" else slo
+            res = gw.read(key, slo=slo, timeout=READ_TIMEOUT_S)
+            bound = (0 if slo == FRESH
+                     else float("inf") if slo is None else slo)
+            source = res.source.split(":")[0]
+            out["reads"].append((source, str(slo), key, res.staleness,
+                                 res.waited_s, res.escalated))
+            if res.staleness > bound or res.staleness < 0:
+                out["violations"].append(
+                    f"{key} slo={slo!r} measured {res.staleness} "
+                    f"({res.source})")
+            time.sleep(1e-3)              # pace the reader, as the tests do
+    except BaseException as e:            # re-raised by the phase
+        out["error"] = e
+
+
+def _join_replica(rt, gw, out, stop):
+    """Add one replica once the applied frontier reaches clock 1 (polled
+    every 10 ms, so the join is not held up behind a slow read)."""
+    try:
+        while rt.running and not stop.is_set():
+            clock = rt.completed_clock()
+            if clock >= 1:
+                t = time.perf_counter()
+                rep = gw.add_replica()
+                out["joined"] = {"rid": rep.rid, "applied_clock": clock,
+                                 "add_s": time.perf_counter() - t}
+                return
+            time.sleep(0.01)
+    except BaseException as e:            # re-raised by the phase
+        out["error"] = e
+
+
+def _serving_run(dev, corpus, transport, serving, n_replicas, clocks, join,
+                 prof_on):
+    """One LDA run with forked clients and a read gateway built after
+    start(): the reader thread serves the whole run, then the replicas
+    catch up and are held bitwise to the master.  Returns what the phase
+    prints and checks."""
+    import threading
+
+    from repro_torch.core import policies
+    from repro_torch.kernels.ps_apply import ops as apply_ops
+    from repro_torch.runtime import ReadGateway
+
+    kw = {"zero_copy": True} if transport == "shm" else {}
+    rt, fn = _wire_runtime(dev, corpus, policies.ssp(1), transport, **kw)
+    out = {"reads": [], "violations": [], "joined": None, "error": None}
+    prof = contextlib.nullcontext()
+    with path_run(dev) as run:
+        t = time.perf_counter()
+        rt.start(fn, clocks, timeout=600)
+        t_prof = time.perf_counter()
+        before = apply_ops.launches        # launched before the profiler
+        if prof_on:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+        with prof:
+            gw = ReadGateway(rt, n_replicas=n_replicas, transport=serving)
+            try:
+                stop = threading.Event()
+                threads = [threading.Thread(target=_serve_reads,
+                                            args=(rt, gw, out, stop),
+                                            name="smoke-reader", daemon=True)]
+                if join:
+                    threads.append(threading.Thread(
+                        target=_join_replica, args=(rt, gw, out, stop),
+                        name="smoke-join", daemon=True))
+                for th in threads:
+                    th.start()
+                stats = rt.wait()
+                t_wait = time.perf_counter()
+                stop.set()
+                for th in threads:
+                    th.join(timeout=120)
+                if (any(th.is_alive() for th in threads)
+                        or out["error"] is not None):
+                    raise AssertionError(f"replicas {serving}: reader "
+                                         f"failed: {out['error']!r}")
+                rset = gw.replicas
+                deadline = time.monotonic() + CATCH_UP_S
+                while any(rset.staleness(r.vc, rset.master_vc())
+                          for r in rset.replicas):
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"replicas {serving}: not "
+                                             f"caught up in {CATCH_UP_S} s")
+                    time.sleep(0.01)
+                torch.cuda.synchronize()
+                end = time.perf_counter()
+                catch_up_s = end - t_wait
+                # at quiesce: every replica's raw buffers bitwise the master
+                masters = _check_lda_master(rt, corpus,
+                                            f"replicas {serving}")
+                for rep in rset.replicas:
+                    for key, want in masters.items():
+                        buf = rep.values[key]
+                        if not (buf.is_cuda and buf.dtype == torch.float64):
+                            raise AssertionError(
+                                f"replica {rep.rid} {key} is {buf.dtype} on "
+                                f"{buf.device}")
+                        got, _ = rep.serve(key)
+                        if got.reshape(want.shape).tobytes() \
+                                != want.tobytes():
+                            raise AssertionError(
+                                f"replicas {serving}: replica {rep.rid}'s "
+                                f"{key} is not bitwise the master")
+                # a slo=0 read from every replica equals the master
+                final_sources = set()
+                for key, want in masters.items():
+                    seen = set()
+                    for _ in range(4 * len(rset.replicas)):
+                        res = gw.read(key, slo=0, timeout=60.0)
+                        if res.staleness != 0 or not np.array_equal(
+                                res.value, want):
+                            raise AssertionError(
+                                f"replicas {serving}: slo=0 read of {key} "
+                                f"from {res.source} != master")
+                        seen.add(res.source)
+                        if len(seen) == len(rset.replicas):
+                            break
+                    final_sources |= seen
+                want_sources = {f"replica:{r.rid}" for r in rset.replicas}
+                if final_sources != want_sources:
+                    raise AssertionError(f"replicas {serving}: slo=0 reads "
+                                         f"came from {sorted(final_sources)}")
+                m = rt.metrics()
+                result = {"rt": rt, "stats": stats, "gw": gw, "run": run,
+                       "out": out, "metrics": m,
+                       "caught_up_s": end - t, "run_s": t_wait - t,
+                       "start_s": t_prof - t, "catch_up_s": catch_up_s,
+                       "launches_before_profile": before,
+                       "ring_bytes": rset.ring_bytes,
+                       "replicas": [{"rid": r.rid,
+                                     "deltas": r.deltas_applied,
+                                     "bytes_ingested": r.bytes_ingested,
+                                     "ingest_calls": r.ingest_applies,
+                                     "stale_row_drops": r.stale_row_drops,
+                                     "reads": r.reads}
+                                    for r in rset.replicas],
+                       "pub_drops": rset.pub_drops,
+                       "pub_resyncs": rset.pub_resyncs,
+                       "errors": list(rset.errors),
+                       "violations": list(rset.violations)}
+            finally:
+                gw.close()
+    result["prof"] = prof if prof_on else None
+    result["prof_s"] = end - t_prof
+    result["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return result
+
+
+def _read_summary(reads):
+    by = collections.Counter(f"{src}|slo={slo}" for src, slo, *_ in reads)
+    lat = {}
+    for src in sorted({r[0] for r in reads}):
+        lat[src] = _percentiles([r[4] * 1e3 for r in reads if r[0] == src])
+    return {"n": len(reads), "by_source_and_slo": dict(sorted(by.items())),
+            "escalated": sum(1 for r in reads if r[5]),
+            "latency_ms_by_source": lat,
+            "max_staleness_by_slo": {
+                slo: max(r[3] for r in reads if r[1] == slo)
+                for slo in sorted({r[1] for r in reads})}}
+
+
+def run_replicas_phase(dev, corpus, wire_wall_s):
+    """The serving tier at full width: the wire phase's run (shm, zero-copy,
+    4 forked clients, 2 shards, ssp(1), 3 clocks) with a read gateway of 2
+    replicas over the shm serving transport built after start(), a reader
+    thread cycling SLOs 0, 1, None and fresh over both keys the whole run,
+    and a third replica added once the applied frontier reaches clock 1;
+    then tcp serving on a tcp runtime (1 replica, 2 clocks).  Returns the
+    main run's launches, its ps_apply calls and the tcp run's launches."""
+    from repro_torch.runtime.serving.replica import INGEST_SITE
+
+    # a short profiler run before the fork sets CUPTI up, as in durable
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    main = _serving_run(dev, corpus, "shm", "shm", REPLICAS_MAIN, N_CLOCKS,
+                        join=True, prof_on=True)
+    tcp = _serving_run(dev, corpus, "tcp", "tcp", 1, REPLICAS_TCP_CLOCKS,
+                       join=False, prof_on=False)
+    shm = os.statvfs("/dev/shm")
+    lines = {}
+    for name, r in (("shm", main), ("tcp", tcp)):
+        stats, out, launches = r["stats"], r["out"], r["run"]["launches"]
+        rt = r["rt"]
+        if stats.violations or out["violations"] or r["violations"] \
+                or r["errors"]:
+            raise AssertionError(
+                f"replicas {name}: violations {stats.violations[:3]} "
+                f"{out['violations'][:3]} {r['violations'][:3]}, errors "
+                f"{r['errors'][:3]}")
+        applied = sum(int(s.applied_parts.sum()) for s in rt.shards)
+        if applied != int(rt._parts_sent.sum()):
+            raise AssertionError(f"replicas {name}: parts sent "
+                                 f"{int(rt._parts_sent.sum())} != applied "
+                                 f"{applied}")
+        # counted where the kernel launches, under replica ingest's site
+        ingest = r["run"]["ps_apply_by_site"].get(INGEST_SITE, 0)
+        ingest_calls = sum(x["ingest_calls"] for x in r["replicas"])
+        if not (0 < ingest <= ingest_calls and launches["ps_apply"] > ingest
+                and launches["topk_mag"] == 0):
+            raise AssertionError(
+                f"replicas {name}: ps_apply launched {launches['ps_apply']} "
+                f"times, {ingest} by replica ingest in {ingest_calls} calls; "
+                f"topk_mag {launches['topk_mag']}")
+        if not out["reads"]:
+            raise AssertionError(f"replicas {name}: no read was served")
+        line = {"serving": name, "transport": name,
+                "n_replicas": len(r["replicas"]),
+                "clocks": rt.n_clocks, "vocab": VOCAB, "n_topics": N_TOPICS,
+                "workers": N_WORKERS, "client_processes": rt.n_proc,
+                "shards": N_SHARDS, "policy": "ssp(1)", "reduced": REDUCED,
+                "wall_s": {"run": r["run_s"], "start": r["start_s"],
+                           "catch_up": r["catch_up_s"],
+                           "caught_up": r["caught_up_s"]},
+                "reads": _read_summary(out["reads"]),
+                "gateway": {"escalations": r["gw"].stats.n_escalations,
+                            "master_reads": r["gw"].stats.n_master_reads,
+                            "replica_reads": r["gw"].stats.n_replica_reads,
+                            "block_s": r["gw"].stats.block_time},
+                "replicas": r["replicas"],
+                "bytes_ingested": sum(x["bytes_ingested"]
+                                      for x in r["replicas"]),
+                "delta_msgs": sum(x["deltas"] for x in r["replicas"]),
+                "pub_drops": r["pub_drops"], "pub_resyncs": r["pub_resyncs"],
+                "launches": launches,
+                "ps_apply_launches": {"total": launches["ps_apply"],
+                                      "replica_ingest": ingest,
+                                      "replica_ingest_calls": ingest_calls,
+                                      "shards": launches["ps_apply"]
+                                      - ingest},
+                "serving_ring_bytes": r["ring_bytes"],
+                "peak_device_bytes": r["peak_device_bytes"],
+                "violations": 0, "replicas_bitwise_master": True,
+                "slo0_read_from_every_replica": True}
+        if out["joined"] is not None:
+            line["joined"] = out["joined"]
+        lines[name] = line
+    # joined mid-run: before the frontier reached the last clock, and fed
+    # deltas published after its in-stream bootstrap
+    joined = main["out"]["joined"]
+    if (joined is None or joined["applied_clock"] >= N_CLOCKS
+            or main["replicas"][joined["rid"]]["deltas"] == 0):
+        raise AssertionError(f"replicas: the third replica did not join "
+                             f"mid-run ({joined})")
+    prof = main["prof"]
+    device_s = device_seconds(prof)
+    busy_s = sum(device_s.values())
+    launches = main["run"]["launches"]
+    in_window = launches["ps_apply"] - main["launches_before_profile"]
+    in_profile = sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and PS_APPLY_KERNEL.match(_short(e.name)))
+    if in_profile != in_window:
+        raise AssertionError(f"replicas: {in_profile} ps_apply kernels in "
+                             f"the profile, {in_window} launched in its "
+                             f"window")
+    lines["shm"].update({
+        "profiled_s": main["prof_s"], "device_busy_s": busy_s,
+        "device_idle_share": 1.0 - busy_s / main["prof_s"],
+        "device_s_by_name": dict(sorted(device_s.items(),
+                                        key=lambda kv: -kv[1])[:8]),
+        "h2d_s": sum(v for k, v in device_s.items() if "HtoD" in k),
+        "d2h_s": sum(v for k, v in device_s.items() if "DtoH" in k),
+        "ps_apply_device_s": ps_apply_seconds(device_s, in_window),
+        "ps_apply_kernels_in_profile": in_profile,
+        "ps_apply_launched_in_profile": in_window,
+        "metrics_replicas": [vars(x) for x in main["metrics"].replicas],
+        "dev_shm_bytes": {"total": shm.f_frsize * shm.f_blocks,
+                          "avail": shm.f_frsize * shm.f_bavail},
+        "wire_phase_wall_s": wire_wall_s})
+    emit({"phase": "replicas", **lines["shm"], "tcp": lines["tcp"]})
+    calls = [c for c in main["run"]["calls"]["ps_apply"]
+             if c[0] in (VOCAB, N_TOPICS)]      # full-key replica buffers
+    return (launches, calls, tcp["run"]["launches"],
+            lines["shm"]["ps_apply_launches"]["replica_ingest"])
 
 
 SPMD_STALENESS = 2
@@ -1863,6 +2209,8 @@ def main() -> None:
     wire_launches, wire_wall_s = run_wire_phase(dev, corpus, lda_wall_s)
     durable_launches, replay_launches = run_durable_phase(dev, corpus,
                                                           wire_wall_s)
+    (replica_launches, replica_calls, tcp_launches,
+     ingest_launches) = run_replicas_phase(dev, corpus, wire_wall_s)
     spmd_launches, vap_shapes = run_lda_spmd_phase(dev, corpus)
     launches.update(spmd_launches)
     app_launches, app_calls = run_apps_phase(dev)
@@ -1878,6 +2226,8 @@ def main() -> None:
     # scalar path, and NaN / inf / -0.0 in delta
     apply_shapes, topk_lengths = path_shapes(calls)
     app_shapes, _ = path_shapes(app_calls)
+    ingest_shapes, _ = path_shapes({"ps_apply": replica_calls,
+                                    "topk_mag": []})
     R, C, _ = apply_shapes[0]
     big = vap_shapes[0]
     cases = {
@@ -1885,6 +2235,9 @@ def main() -> None:
                      for seed, (R, C, N) in enumerate(apply_shapes)]
         + [check_ps_apply(dev, R_, C_, N_, torch.float64, 60 + i, False)
            for i, (R_, C_, N_) in enumerate(app_shapes)]
+        + [{"site": "replica ingest",
+            **check_ps_apply(dev, R_, C_, N_, torch.float64, 70 + i, False)}
+           for i, (R_, C_, N_) in enumerate(ingest_shapes)]
         + [check_ps_apply(dev, R, C, 40_000, torch.float64, 10, True),
            check_ps_apply(dev, R, C, 40_000, torch.float32, 11, True),
            check_ps_apply(dev, R, C, 4_096, torch.float64, 12, False,
@@ -1929,6 +2282,7 @@ def main() -> None:
           "path_calls": {**{k: len(v) for k, v in calls.items()},
                          "vap_accum": launches["vap_accum"]},
           "app_calls": {k: len(v) for k, v in app_calls.items()},
+          "replica_ingest_calls": len(replica_calls),
           "app_launches": app_launches,
           "rglru_sqrt": check_rglru_sqrt(dev),
           "cases": {**cases, "linear_recurrence": linear_recurrence}})
@@ -1955,9 +2309,18 @@ def main() -> None:
                       "replaces": replaces, "launches": launches[name],
                       "wire_launches": wire_launches[name],
                       "durable_launches": durable_launches[name],
+                      "replicas_launches": replica_launches[name],
+                      "replicas_tcp_launches": tcp_launches[name],
                       "replay_launches": {
                           k: v[name] for k, v in replay_launches.items()},
                       **{k: main_case[k] for k in keys}})
+    # ps_apply's second call site: replica ingest, at its median call on
+    # the full word_topic buffer; launches: the replicas' own in the
+    # replicas phase's main run
+    ingest = next(c for c in cases["ps_apply"]
+                  if c.get("site") == "replica ingest")
+    table[0]["replica_ingest"] = {"launches": ingest_launches,
+                                  **{k: ingest[k] for k in keys}}
     # rglru_scan's entries: the fused one per dtype at the serve path's
     # calls, the bare recurrence at the serve shape (off the path); launches:
     # each entry's own count over RecurrentGemma-9B's prefill

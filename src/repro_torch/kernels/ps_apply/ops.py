@@ -13,14 +13,17 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ps_apply import ref
 
-# kernel launches made by scatter_add_ (reset by callers that count a run)
+# kernel launches made by scatter_add_, in all and by the ``site`` its
+# caller names (reset by callers that count a run)
 launches = 0
+launches_by_site: dict = {}
 _COUNT_LOCK = threading.Lock()
 
 _ENTRY = {torch.float64: "ps_apply_f64", torch.float32: "ps_apply_f32"}
@@ -62,8 +65,8 @@ def _check(dense: torch.Tensor, rows: torch.Tensor, delta: torch.Tensor,
 
 
 def scatter_add_(dense: torch.Tensor, rows: torch.Tensor,
-                 delta: torch.Tensor, *,
-                 rows_checked: bool = False) -> torch.Tensor:
+                 delta: torch.Tensor, *, rows_checked: bool = False,
+                 site: Optional[str] = None) -> torch.Tensor:
     """Accumulate ``delta[i]`` into ``dense[rows[i]]`` in submission order.
 
     ``dense`` (R, C) float32/float64, ``rows`` (N,) int64 in [0, R] where
@@ -74,6 +77,8 @@ def scatter_add_(dense: torch.Tensor, rows: torch.Tensor,
     on a CUDA tensor is a device round trip that waits for the stream.  A
     caller that has checked the rows on the host before copying them to the
     card (as the shard does) passes ``rows_checked=True`` to skip it.
+    A caller that names its ``site`` has the launch counted under that name
+    in ``launches_by_site`` too.
     """
     _check(dense, rows, delta, rows_checked)
     if dense.device.type == "cpu":
@@ -84,11 +89,12 @@ def scatter_add_(dense: torch.Tensor, rows: torch.Tensor,
     # the grouping: bookkeeping the TPU kernel's sequential loop does not
     # need (kernel.cu's note); the stable order is what the kernel walks
     keys, perm = torch.sort(rows, stable=True)
-    return _apply_grouped_(dense, keys, perm, delta)
+    return _apply_grouped_(dense, keys, perm, delta, site)
 
 
 def _apply_grouped_(dense: torch.Tensor, keys: torch.Tensor,
-                    perm: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+                    perm: torch.Tensor, delta: torch.Tensor,
+                    site: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel on the stable sort's ``(keys, perm)``: each run of
     equal keys is walked in order by one thread a column, landing in
     ``dense`` in place.  Launches on the current stream and does not
@@ -103,4 +109,6 @@ def _apply_grouped_(dense: torch.Tensor, keys: torch.Tensor,
     global launches
     with _COUNT_LOCK:
         launches += 1
+        if site is not None:
+            launches_by_site[site] = launches_by_site.get(site, 0) + 1
     return dense

@@ -8,8 +8,9 @@ and ``tcp`` wire transports), FIFO channels, and server shards whose master
 blocks are float64 tensors on the runtime's device, applied by the
 ``ps_apply`` kernel.  Around it: unified metrics (:mod:`.metrics`),
 sampled tracing (:mod:`.trace`), a per-shard write-ahead log (:mod:`.wal`),
-and snapshots with exact-clock recovery replayed on the card
-(:mod:`.snapshot`).
+snapshots with exact-clock recovery replayed on the card
+(:mod:`.snapshot`), and the serving tier (:mod:`.serving`): read replicas
+with their buffers on the device behind an SLO-routed read gateway.
 """
 import logging as _logging
 
@@ -18,8 +19,10 @@ from repro_torch.runtime.membership import INF_CLOCK, Partition
 from repro_torch.runtime.messages import (AckBatchMsg, Channel, ClockMarker,
                                           ClockMsg, DeliverMsg,
                                           FullyDelivered, ProcDoneMsg,
-                                          ReplicaVcMsg, ShardFinMsg,
-                                          UpdateMsg)
+                                          ReplicaDeltaMsg, ReplicaFinMsg,
+                                          ReplicaStateMsg, ReplicaVcMsg,
+                                          ShardFinMsg, SubscribeMsg,
+                                          UnsubscribeMsg, UpdateMsg)
 from repro_torch.runtime.metrics import (GatewayMetrics, MembershipMetrics,
                                          MetricsHub, ProcessMetrics,
                                          ReplicaMetrics, RunMetrics,
@@ -27,6 +30,8 @@ from repro_torch.runtime.metrics import (GatewayMetrics, MembershipMetrics,
                                          SnapshotMetrics)
 from repro_torch.runtime.runtime import (ClientProcess, PSRuntime,
                                          RuntimeViewHandle)
+from repro_torch.runtime.serving import (FRESH, ReadGateway, ReadResult,
+                                         ReadShedError, ReplicaSet)
 from repro_torch.runtime.shard import ServerShard, UidDedup
 from repro_torch.runtime.snapshot import (conservative_vc, load_snapshot,
                                           recover_to_vc, save_snapshot,
@@ -43,14 +48,16 @@ from repro_torch.runtime.wal import (WalWriter, prune_segments, read_segment,
 
 __all__ = [
     "AckBatchMsg", "Channel", "ClientProcess", "ClockMarker", "ClockMsg",
-    "DeliverMsg", "FifoAssert", "FrameDecoder", "FullyDelivered",
+    "DeliverMsg", "FRESH", "FifoAssert", "FrameDecoder", "FullyDelivered",
     "GatewayMetrics", "INF_CLOCK", "MembershipMetrics", "MetricsHub",
     "PSRuntime", "Partition", "ProcDoneMsg", "ProcessMetrics",
-    "ReplicaMetrics", "ReplicaVcMsg", "RunMetrics", "RuntimeConfig",
-    "RuntimeMetrics", "RuntimeViewHandle", "ServerShard", "ShardFinMsg",
-    "ShardMetrics", "ShmRing", "SnapshotMetrics", "TRANSPORTS",
-    "TraceConfig", "TraceHub", "UidDedup", "UpdateMsg", "WalWriter",
-    "WireChannel",
+    "ReadGateway", "ReadResult", "ReadShedError", "ReplicaDeltaMsg",
+    "ReplicaFinMsg", "ReplicaMetrics", "ReplicaSet", "ReplicaStateMsg",
+    "ReplicaVcMsg", "RunMetrics", "RuntimeConfig", "RuntimeMetrics",
+    "RuntimeViewHandle", "ServerShard", "ShardFinMsg", "ShardMetrics",
+    "ShmRing", "SnapshotMetrics", "SubscribeMsg", "TRANSPORTS",
+    "TraceConfig", "TraceHub", "UidDedup", "UnsubscribeMsg", "UpdateMsg",
+    "WalWriter", "WireChannel",
     "conservative_vc", "dump_chrome_trace", "encode_frame", "explain_block",
     "explain_read", "load_snapshot", "prune_segments", "read_segment",
     "recover_to_vc", "require_tso", "save_snapshot", "snapshot_params",

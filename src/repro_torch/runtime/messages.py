@@ -23,11 +23,24 @@ Multi-process quiesce (forked clients over a wire transport):
     p -> s : ProcDoneMsg  process p finished all its clocks
     s -> p : ShardFinMsg  shard s has drained: nothing further follows
 
+Serving tier (read replicas, :mod:`repro_torch.runtime.serving`):
+
+    serving -> s : SubscribeMsg    a replica joins the shard's publish stream
+                   UnsubscribeMsg  ... and leaves it
+    s -> replica : ReplicaStateMsg in-stream bootstrap (partition + vc)
+                   ReplicaDeltaMsg one coalesced delta per key per cycle
+                   ReplicaVcMsg    applied vector clock, FIFO-behind deltas
+                   ReplicaFinMsg   unsubscribe acknowledged, FIFO-last
+
 Durability: a shard's write-ahead log stamps each group commit with a
-:class:`ReplicaVcMsg` (its applied vector clock).
+:class:`ReplicaVcMsg` (its applied vector clock), the same stamp the
+publish stream carries.
 
 Messages carry host numpy arrays: the shard copies a part's rows and delta
-to the device only to apply them to its master block.
+to the device only to apply them to its master block, and a replica copies
+a published delta to the device only to land it in its own buffers.  Every
+message pickles, so the serving messages ride the shm and tcp wires as
+pickle-5 frames (:func:`repro_torch.runtime.transport.encode_frame`).
 """
 from __future__ import annotations
 
@@ -136,15 +149,77 @@ class ShardFinMsg:
 
 
 @dataclass
+class SubscribeMsg:
+    """A read replica subscribes to a shard's publish stream.  ``channel``
+    is the live shard->replica publish channel (Channel or WireChannel):
+    subscribe control always travels in-process (never over a wire), so the
+    object reference is valid at the shard.  With ``want_state`` the shard
+    first sends a :class:`ReplicaStateMsg` (in-stream bootstrap), then every
+    later delta, all FIFO on the same channel."""
+    replica: int
+    channel: object
+    want_state: bool = True
+    seq: int = -1
+
+
+@dataclass
+class UnsubscribeMsg:
+    """Stop publishing to this replica; the shard answers with a final
+    :class:`ReplicaFinMsg` on the publish channel (FIFO-last), after which
+    the serving tier may tear the channel down."""
+    replica: int
+    seq: int = -1
+
+
+@dataclass
+class ReplicaStateMsg:
+    """In-stream bootstrap: the shard's dense partition at subscribe time,
+    in the snapshot payload format (``{key: {"rows", "values"}}``, exactly
+    :meth:`ServerShard.state`, host arrays), stamped with the shard's
+    applied vector clock.  The replica writes the rows into its full-key
+    buffers and adopts the stamp as its per-shard vector clock."""
+    shard: int
+    state: dict              # {key: {"rows": int64, "values": (n, C)}}
+    clock_vc: np.ndarray     # (n_proc,) applied frontier at the cut
+    seq: int = -1
+    # membership epoch of the cut: the replica stamps the covered rows so
+    # late older-epoch deltas (already folded into this state) are dropped
+    epoch: int = -1
+
+
+@dataclass
+class ReplicaDeltaMsg:
+    """Row deltas the shard applied in one cycle, coalesced per key (rows
+    may repeat across source parts: they accumulate in order)."""
+    shard: int
+    key: str
+    rows: np.ndarray         # global row ids
+    delta: np.ndarray        # (len(rows), C)
+    seq: int = -1
+    epoch: int = -1          # membership epoch the publisher applied under
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.delta.nbytes)
+
+
+@dataclass
 class ReplicaVcMsg:
     """A shard's applied per-process vector clock, FIFO after every update
     part it covers (``clock_vc[p] == c``: every update of process p
     timestamped <= c that touches this shard's rows was applied).  The
+    publish stream carries it behind the deltas it covers, and the
     write-ahead log stamps each group commit with it
-    (:mod:`repro_torch.runtime.wal`); the serving tier's publish stream
-    will carry it too (ROADMAP Queue 1 item 5.3)."""
+    (:mod:`repro_torch.runtime.wal`)."""
     shard: int
     clock_vc: np.ndarray     # (n_proc,) int64
+    seq: int = -1
+
+
+@dataclass
+class ReplicaFinMsg:
+    """Unsubscribe acknowledged: nothing further on this publish channel."""
+    shard: int
     seq: int = -1
 
 

@@ -7,18 +7,17 @@ the PS runtime.
 
 It folds ``RunStats`` (client-side update/block counters), the per-shard
 load counters (parts, rows and bytes applied, the dense-lock wait), the
-per-process load counters, the snapshot counters and the write-ahead log's
-counters into one tree.  The serving tier's ``ReplicaMetrics`` and
-``GatewayMetrics`` are defined here as types; ``RuntimeMetrics.replicas``
-and ``.gateways`` stay empty until that tier is ported (ROADMAP Queue 1
-item 5.3), and ``MembershipMetrics`` reports the static epoch-0 partition
-until elastic membership is (item 5.4).
+per-process load counters, the snapshot counters, the write-ahead log's
+counters and the serving tier's (every registered replica set's replicas
+and every gateway's read counters, the shards' publish backpressure) into
+one tree.  ``MembershipMetrics`` reports the static epoch-0 partition until
+elastic membership is ported (ROADMAP Queue 1 item 5.4).
 
 Collection discipline (the "low-overhead" contract):
 
   * every hot-path counter is **single-writer**: owned by exactly one
-    thread (the shard thread, one worker's ClientProcess under its cond)
-    and bumped without any new lock;
+    thread (the shard thread, one worker's ClientProcess under its cond,
+    one replica's ingest thread) and bumped without any new lock;
   * the collector reads them **racily** — int/float loads are atomic under
     the GIL, and a slightly torn view across counters only wobbles a rate
     estimate, never the correctness audits (which run on the quiesced
@@ -227,9 +226,10 @@ class MetricsHub:
     def __init__(self, rt):
         self.rt = rt
         self._prev_t: Optional[float] = None
-        # sid -> (parts, rows); pid -> n_updates
+        # sid -> (parts, rows); pid -> n_updates; gateway -> (reads, esc)
         self._prev_shard: Dict[int, Tuple[int, int]] = {}
         self._prev_proc: Dict[int, int] = {}
+        self._prev_gw: Dict[int, Tuple[int, int]] = {}
 
     # ---------------------------------------------------------------- parts
     def _collect_run(self, loads: Dict[int, Tuple[int, np.ndarray]]
@@ -273,6 +273,12 @@ class MetricsHub:
         with s.lock:
             active = s.part.owns(s.sid)
             clock_min = int(s.clock_vc.min())
+        try:
+            pending = sum(len(v) for v in s._pub.values())
+        except RuntimeError:                   # racy dict resize: skip once
+            pending = 0
+        last_pub = s.m_last_publish
+        lag = max(0.0, now - last_pub) if (pending and last_pub) else 0.0
         prev_parts, prev_rows = self._prev_shard.get(s.sid, (0, 0))
         self._prev_shard[s.sid] = (parts, rows)
         return ShardMetrics(
@@ -286,12 +292,10 @@ class MetricsHub:
             apply_lock_wait_s=float(s.m_lock_wait),
             applied_parts=[int(x) for x in s.applied_parts],
             clock_min=clock_min,
-            # the shard publishes to no replica until the serving tier
-            # (ROADMAP Queue 1 item 5.3)
-            pub_pending=0,
-            pub_drops=0,
-            pub_resyncs=0,
-            publish_lag_s=0.0,
+            pub_pending=pending,
+            pub_drops=s.pub_drops,
+            pub_resyncs=s.pub_resyncs,
+            publish_lag_s=lag,
             updates_per_s=max(0, parts - prev_parts) / dt,
             rows_per_s=max(0, rows - prev_rows) / dt,
             # wal counters: single-writer (the shard thread), racy reads
@@ -319,6 +323,51 @@ class MetricsHub:
                 block_time_value=float(vec[LOAD_BLOCK_VALUE]),
                 updates_per_s=max(0, n_upd - prev) / dt))
         return out
+
+    def _collect_serving(self, dt: float
+                         ) -> Tuple[List[ReplicaMetrics],
+                                    List[GatewayMetrics]]:
+        reps: List[ReplicaMetrics] = []
+        gws: List[GatewayMetrics] = []
+        for rset in list(self.rt._replica_sets):
+            mvc = rset.master_vc()
+            stale = rset.stale_replicas
+            for rep in list(rset.replicas):
+                reps.append(ReplicaMetrics(
+                    rid=rep.rid,
+                    staleness=rset.staleness(rep.vc, mvc),
+                    reads=rep.reads,
+                    deltas_applied=rep.deltas_applied,
+                    bytes_ingested=rep.bytes_ingested,
+                    poisoned=rep.poisoned,
+                    stale=rep.rid in stale))
+        for gw in list(self.rt._gateways):
+            with gw._slock:
+                st = gw.stats
+                reads = st.n_reads
+                esc = st.n_escalations
+                gm = GatewayMetrics(
+                    n_reads=reads,
+                    n_replica_reads=st.n_replica_reads,
+                    n_master_reads=st.n_master_reads,
+                    n_escalations=esc,
+                    n_shed=st.n_shed,
+                    n_cache_hits=st.n_cache_hits,
+                    reads_by_slo=dict(st.reads_by_slo),
+                    max_served_staleness=st.max_served_staleness,
+                    block_time=st.block_time,
+                    reads_per_replica=dict(st.reads_per_replica),
+                    shedding_fresh=gw.shed_fresh,
+                    n_live_replicas=gw.replicas.n_live)
+            p_reads, p_esc = self._prev_gw.get(id(gw), (0, 0))
+            self._prev_gw[id(gw)] = (reads, esc)
+            d_reads = max(0, reads - p_reads)
+            gm.reads_per_s = d_reads / dt
+            gm.escalations_per_s = max(0, esc - p_esc) / dt
+            gm.escalation_rate = (max(0, esc - p_esc) / d_reads
+                                  if d_reads else 0.0)
+            gws.append(gm)
+        return reps, gws
 
     # -------------------------------------------------------------- collect
     def collect(self) -> RuntimeMetrics:
@@ -348,6 +397,7 @@ class MetricsHub:
                 snapshot_every=rt.snapshot_every,
                 last_clock=rt.snapshots[-1][0] if rt.snapshots else -1)
         shards = [self._collect_shard(s, now, dt) for s in rt.shards]
+        reps, gws = self._collect_serving(dt)
         return RuntimeMetrics(
             t=now,
             wall_s=now - t0,
@@ -360,6 +410,8 @@ class MetricsHub:
             snapshots=snaps,
             shards=shards,
             processes=self._collect_procs(loads, dt),
+            replicas=reps,
+            gateways=gws,
             trace_enabled=rt.trace_on,
             trace_dropped=(rt._trace.dropped() if rt.trace_on else 0),
         )

@@ -75,7 +75,13 @@ Observability and durability, as in the reference:
     in the shard.  A forked client records into a hub of its own, built
     after the fork, and ships its rings with its final state; the parent
     adopts them.  ``rt.dump_trace(path)`` writes Chrome trace JSON,
-    ``rt.explain_block()`` names the straggler a worker waited on;
+    ``rt.explain_block()`` names the straggler a worker waited on,
+    ``rt.explain_read(result)`` why a gateway read landed where it did and
+    ``rt.staleness_timeline(shard)`` the replicas' measured lag over time;
+  * the serving tier (:mod:`repro_torch.runtime.serving`) — read replicas
+    subscribed to the shards' publish streams, with their value buffers on
+    the runtime's device (each published delta lands through ``ps_apply``),
+    behind a gateway that serves every read under a staleness SLO;
   * ``RuntimeConfig(wal_dir=...)`` — a per-shard write-ahead log
     (:mod:`repro_torch.runtime.wal`), and ``snapshot_every`` /
     ``snapshot_dir`` / ``snapshot_keep_last`` periodic snapshots of the
@@ -625,6 +631,10 @@ class PSRuntime(_WorkerFlowMixin):
         self._row_counts = {k: v.shape[0] for k, v in self._x0.items()}
         self.partition = Partition(0, tuple(range(cfg.n_shards)),
                                    self._row_counts)
+        # upper bound on one shard's in-stream bootstrap frame (publish
+        # backpressure: a resync is tried only when the sink has this room)
+        self._state_frame_bytes = sum(
+            v.nbytes + 8 * v.shape[0] for v in self._x0.values()) + 4096
 
         self.stats = RunStats()
         self._slock = threading.Lock()
@@ -670,6 +680,9 @@ class PSRuntime(_WorkerFlowMixin):
         self.shards = [ServerShard(self, s, x0_dev)
                        for s in range(self.n_slots)]
         del x0_dev                            # the shards hold their blocks
+        # serving-tier objects register here for rt.metrics()
+        self._gateways: List[object] = []
+        self._replica_sets: List[object] = []
         self._metrics_hub = MetricsHub(self)
         if cfg.restore_from is not None:
             restore_into(self, cfg.restore_from)
@@ -1059,13 +1072,17 @@ class PSRuntime(_WorkerFlowMixin):
                                        process=process, worker=worker)
 
     def explain_read(self, result) -> dict:
-        """Why a gateway read landed where it did: needs the serving tier
-        (ROADMAP Queue 1 item 5.3), and raises until it is ported."""
+        """Consistency audit: why did this
+        :class:`~repro_torch.runtime.serving.gateway.ReadResult` land where
+        it did — names the lagging ``(shard, proc)`` pair and the vc gap
+        that forced an escalation.  A pure function of the result's audit
+        stamps (works with tracing off)."""
         return trace_mod.explain_read(result)
 
     def staleness_timeline(self, shard: int) -> dict:
-        """Replica staleness over time for one shard: needs the serving
-        tier (ROADMAP Queue 1 item 5.3), and raises until it is ported."""
+        """Measured master-replica staleness over time for one shard,
+        against the policy's clock bound (requires tracing; the points come
+        from the replicas' vc adoptions)."""
         bound = (self.policy.staleness if self.policy.clock_bounded
                  else None)
         return trace_mod.staleness_timeline(self._require_trace(), shard,

@@ -45,8 +45,24 @@ anything retained past the batch is materialized first.
 Applied vector clock: ``clock_vc[p]`` is the highest period of process p
 whose updates this shard has applied — exact because ClockMsg is
 FIFO-after the period's updates on the p->shard channel.  Snapshots stamp
-each shard's state with it, and the write-ahead log stamps its group
-commits with it.
+each shard's state with it, the write-ahead log stamps its group commits
+with it, and the serving tier measures every read against it.
+
+Serving tier (:mod:`repro_torch.runtime.serving`): the shard publishes to
+subscribed read replicas one coalesced ``ReplicaDeltaMsg`` per key per
+apply cycle (global rows, the host arrays the apply copied to the device,
+copied out of the ring first under the zero-copy wire), followed by a
+``ReplicaVcMsg`` stamp when the applied vector clock moved, all FIFO on the
+replica's publish channel.  A replica subscribing mid-run is bootstrapped
+**in-stream**: the shard answers with its current partition (the snapshot
+payload format, copied off the device) plus a vc stamp before any further
+delta, so the replica's view is exact from the first frame it applies.
+Publish sends are **non-blocking** where the wire allows
+(``WireChannel.try_send_many``): a wedged replica whose sink filled up is
+marked *stale* and its frames are dropped instead of stalling the apply
+loop; every later publish cycle retries a full in-stream re-bootstrap, and
+the replica resumes exact once its sink drains.  Publish channels are
+serving-owned and bypass the runtime's in-flight quiesce accounting.
 
 Durability tier (:mod:`repro_torch.runtime.wal`): with
 ``RuntimeConfig(wal_dir=)`` the shard appends every applied update part to
@@ -66,7 +82,9 @@ replay is at-least-once by design).
 Tracing (:mod:`repro_torch.runtime.trace`): with ``rt.trace_on`` the shard
 records a ``shard_batch`` span per batch, an ``apply_part`` point per
 sampled part, ``lock_wait``, ``apply``, ``wal_append`` and ``wal_commit``
-spans.  On the card the ``apply`` span ends after a synchronize of the
+spans, and with subscribers a ``publish`` span per cycle and a
+``publish_part`` point per sampled delta (the start of the lifeline the
+replica's ``ingest_part`` ends).  On the card the ``apply`` span ends after a synchronize of the
 current stream, so it times the apply and not the launches' enqueue; with
 tracing off the apply path gains no synchronize.
 
@@ -80,6 +98,7 @@ collapses well below s.
 """
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 import time
@@ -95,10 +114,15 @@ from repro_torch.runtime import trace as trace_mod
 from repro_torch.runtime.messages import (SHUTDOWN, AckBatchMsg, Channel,
                                           ClockMarker, ClockMsg, DeliverMsg,
                                           FullyDelivered, ProcDoneMsg,
-                                          ShardFinMsg, UpdateMsg,
+                                          ReplicaDeltaMsg, ReplicaFinMsg,
+                                          ReplicaStateMsg, ReplicaVcMsg,
+                                          ShardFinMsg, SubscribeMsg,
+                                          UnsubscribeMsg, UpdateMsg,
                                           group_by_channel, pump_inbox)
 from repro_torch.runtime.transport import (FifoAssert, materialize_msg,
                                            release_msgs)
+
+log = logging.getLogger("repro_torch.runtime.shard")
 
 _BATCH = 256        # max messages coalesced per apply/dispatch cycle
 
@@ -186,6 +210,16 @@ class ServerShard:
         # it moved in this batch (group commit + snapshot check at its end)
         self.clock_vc = np.full(rt.n_proc, -1, dtype=np.int64)
         self._vc_dirty = False
+        # serving tier: replica id -> publish channel, and the publishes
+        # pending per replica for this cycle
+        self.subscribers: Dict[int, object] = {}
+        self._pub: Dict[int, List[object]] = {}
+        # wedged replicas (drop-and-resync).  Treated as immutable: every
+        # change rebinds a fresh set (atomic under the GIL), so other
+        # threads (ReplicaSet.stale_replicas) iterate a snapshot safely
+        self._stale_subs: frozenset = frozenset()
+        self.pub_drops = 0                 # publish cycles dropped on a full
+        self.pub_resyncs = 0               # sink / successful re-bootstraps
         # ESSP (eager server push): applied deltas held per destination and
         # released one coalesced batch per peer at every clock boundary
         self._essp_hold: Dict[int, List[DeliverMsg]] = {}
@@ -194,6 +228,7 @@ class ServerShard:
         self.m_rows_applied = 0            # row-updates applied
         self.m_bytes_applied = 0           # delta bytes applied
         self.m_lock_wait = 0.0             # cumulative dense-lock wait (s)
+        self.m_last_publish = 0.0          # monotonic ts of last publish
         self.proc_load: Dict[int, Tuple[int, np.ndarray]] = {}
         # multi-process quiesce: processes that sent ProcDone; fin sent once
         self._done_procs: set = set()
@@ -220,10 +255,14 @@ class ServerShard:
             done += 1
             try:
                 if rt.check:
-                    err = self._fifo.check(msg.process, msg.seq)
-                    if err:
-                        rt._violation(f"FIFO violation: proc {msg.process}->"
-                                      f"shard {self.sid} {err}")
+                    # serving control (subscribe) names no process: its
+                    # channel is in-process and needs no FIFO audit here
+                    sender = getattr(msg, "process", None)
+                    if sender is not None:
+                        err = self._fifo.check(sender, msg.seq)
+                        if err:
+                            rt._violation(f"FIFO violation: proc {sender}->"
+                                          f"shard {self.sid} {err}")
                 if isinstance(msg, UpdateMsg):
                     run.append(msg)
                 else:
@@ -236,14 +275,14 @@ class ServerShard:
             self._flush_updates(run)
             if rt._proc_mode and not shutdown:
                 self._maybe_fin()
-            self._on_boundary()
+            self._flush_publish()
         except BaseException as e:
             rt._record_error(e)
         if rt.trace_on and done:
             rt._trace.span(trace_mod.EV_SHARD_BATCH, t_batch, self.sid, done)
         # zero-copy discipline: every view consumed by the applies above is
-        # done with, and everything retained (queued/pending/outbox) was
-        # materialized — release the frame pins BEFORE the blocking outbox
+        # done with, and everything retained (queued/pending/publish/outbox)
+        # was materialized — release the frame pins BEFORE the blocking outbox
         # writes.  Blocking on a full s->c ring while still pinning the c->s
         # ring would let two full rings deadlock each other (the client comm
         # thread observes the mirror-image rule).
@@ -305,6 +344,10 @@ class ServerShard:
                     self._send(rt._chan_sp[self.sid][q],
                                ClockMarker(msg.process, self.sid, msg.clock,
                                            self.epoch))
+        elif isinstance(msg, SubscribeMsg):
+            self._on_subscribe(msg)
+        elif isinstance(msg, UnsubscribeMsg):
+            self._on_unsubscribe(msg)
         elif isinstance(msg, ProcDoneMsg):
             self._done_procs.add(msg.process)
             # ESSP: no further ClockMsg from this process will trigger a
@@ -375,6 +418,12 @@ class ServerShard:
             for key, msgs in by_key.items():
                 dense = self.dense[key]
                 if len(msgs) == 1:
+                    if self.subscribers:
+                        # the publish entry below keeps the part's arrays
+                        # past this cycle: under the zero-copy wire they
+                        # are views into the client's ring, valid only
+                        # until the batch's pins are released
+                        materialize_msg(msgs[0])
                     rows, delta = msgs[0].rows, msgs[0].delta
                 else:
                     rows = np.concatenate([m.rows for m in msgs])
@@ -410,6 +459,14 @@ class ServerShard:
                     # (stable) and walks each row's run in order; unique rows
                     # are runs of one, bitwise the same result.
                     apply_ops.scatter_add_(dense, idx, d, rows_checked=True)
+                # serving: one coalesced delta per key per cycle per replica
+                # (global rows, host arrays shared between the replicas,
+                # which only read them)
+                for rid in self.subscribers:
+                    if rid not in self._stale_subs:
+                        self._pub.setdefault(rid, []).append(
+                            ReplicaDeltaMsg(self.sid, key, rows, delta,
+                                            epoch=self.part.epoch))
             if self.wal is not None:
                 # WAL append FIFO-behind the apply, inside the same lock
                 # section so the log marks (parts/applied/max_ts) stay
@@ -527,17 +584,121 @@ class ServerShard:
             else:
                 break
 
-    # --------------------------------------------------- clock boundaries
-    def _on_boundary(self) -> None:
-        """End of a batch in which the applied vector clock moved: group
-        commit of the WAL (pending delta frames + a vc stamp, FIFO on disk)
-        and then the runtime's periodic snapshot check (WAL-before-snapshot:
-        the commit precedes any snapshot this boundary triggers)."""
-        if not self._vc_dirty:
+    # ------------------------------------------------------- serving tier
+    def _on_subscribe(self, msg: SubscribeMsg) -> None:
+        """Register a replica publish channel; bootstrap in-stream.
+
+        The state payload and the vc stamp are taken in the shard thread, so
+        they form an exact cut: every delta published afterwards is FIFO
+        behind them on this channel.  The bootstrap send is non-blocking
+        like every publish: a subscriber whose (reused) edge is already
+        wedged full starts out *stale* and gets its bootstrap from the
+        resync path once the sink drains — the shard never stalls."""
+        chan = msg.channel
+        boot = (ReplicaStateMsg(self.sid, self.state(), self.vc_snapshot(),
+                                epoch=self.part.epoch)
+                if msg.want_state
+                else ReplicaVcMsg(self.sid, self.vc_snapshot()))
+        self.subscribers[msg.replica] = chan
+        if self._publish_send(chan, [boot]):
+            self._stale_subs = self._stale_subs - {msg.replica}
+        else:
+            self._stale_subs = self._stale_subs | {msg.replica}
+            self.pub_drops += 1
+            log.warning(
+                "shard %d: replica %d subscribed on a wedged sink — "
+                "bootstrap dropped, replica starts stale until the resync "
+                "path gets through (epoch %d)", self.sid, msg.replica,
+                self.part.epoch)
+
+    def _on_unsubscribe(self, msg: UnsubscribeMsg) -> None:
+        chan = self.subscribers.pop(msg.replica, None)
+        self._stale_subs = self._stale_subs - {msg.replica}
+        if chan is None:
             return
-        self._vc_dirty = False
+        # flush this replica's pending publishes FIFO-before the fin —
+        # non-blocking: a wedged replica simply misses its fin (close()'s
+        # fin wait is deadline-bounded) rather than stalling the shard
+        msgs = self._pub.pop(msg.replica, [])
+        msgs.append(ReplicaFinMsg(self.sid))
+        if not self._publish_send(chan, msgs):
+            self.pub_drops += 1
+
+    def _publish_send(self, chan, msgs: list) -> bool:
+        """Non-blocking publish where the wire supports it (module
+        docstring); an in-process queue is unbounded and takes the send."""
+        try_send = getattr(chan, "try_send_many", None)
+        if try_send is None:
+            chan.send_many(msgs)
+            return True
+        return try_send(msgs)
+
+    def _try_resync(self, rid: int, chan) -> None:
+        """Attempt the in-stream re-bootstrap of a stale replica: a fresh
+        state + vc cut, exactly the subscribe path.  Skipped cheaply while
+        the sink still lacks room for a state-sized frame."""
+        if chan.room() < self.rt._state_frame_bytes:
+            return
+        if self._publish_send(chan, [ReplicaStateMsg(
+                self.sid, self.state(), self.vc_snapshot(),
+                epoch=self.part.epoch)]):
+            self._stale_subs = self._stale_subs - {rid}
+            self.pub_resyncs += 1
+            log.info(
+                "shard %d: replica %d resynced — in-stream re-bootstrap "
+                "delivered after its sink drained (epoch %d, resyncs %d)",
+                self.sid, rid, self.part.epoch, self.pub_resyncs)
+
+    # --------------------------------------------------- clock boundaries
+    def _flush_publish(self) -> None:
+        """End of a batch: publish this cycle's coalesced deltas, plus a vc
+        stamp if the applied frontier moved, to every subscribed replica
+        (never blocking: a full sink marks the replica stale for
+        drop-and-resync).  Then, if the frontier moved, the group commit of
+        the WAL (pending delta frames + a vc stamp, FIFO on disk) and the
+        runtime's periodic snapshot check (WAL-before-snapshot: the commit
+        precedes any snapshot this boundary triggers)."""
+        rt = self.rt
+        trc = rt._trace if rt.trace_on else None
+        vc_dirty, self._vc_dirty = self._vc_dirty, False
+        if self.subscribers:
+            t_pub = time.monotonic_ns() if trc is not None else 0
+            self.m_last_publish = time.monotonic()
+            stamp = self.vc_snapshot() if vc_dirty else None
+            for rid, chan in self.subscribers.items():
+                if rid in self._stale_subs:
+                    self._pub.pop(rid, None)
+                    self._try_resync(rid, chan)
+                    continue
+                msgs = self._pub.pop(rid, [])
+                if stamp is not None:
+                    msgs.append(ReplicaVcMsg(self.sid, stamp))
+                if msgs and not self._publish_send(chan, msgs):
+                    self._stale_subs = self._stale_subs | {rid}   # wedged:
+                    self.pub_drops += 1         # drop now, resync later
+                    log.warning(
+                        "shard %d: replica %d publish sink full — marking "
+                        "stale, dropping this cycle's deltas and retrying a "
+                        "full re-bootstrap each cycle (epoch %d, drops so "
+                        "far %d)", self.sid, rid, self.part.epoch,
+                        self.pub_drops)
+                elif trc is not None and msgs:
+                    # publish lifeline: the send stamped the seqs, so the
+                    # replica's ingest joins on (shard, replica, seq)
+                    for m in msgs:
+                        if (type(m) is ReplicaDeltaMsg
+                                and trc.sampled(m.seq)):
+                            trc.point(trace_mod.EV_PUBLISH_PART, self.sid,
+                                      m.seq, rid)
+            if trc is not None:
+                stamp_min = int(stamp.min()) if stamp is not None else -1
+                trc.span(trace_mod.EV_PUBLISH, t_pub, self.sid, stamp_min,
+                         len(self.subscribers))
+        elif self._pub:
+            self._pub.clear()
+        if not vc_dirty:
+            return
         if self.wal is not None and self.part.owns(self.sid):
-            trc = self.rt._trace if self.rt.trace_on else None
             vc = self.vc_snapshot()
             t_wal = time.monotonic_ns() if trc is not None else 0
             self.wal.commit(vc)

@@ -1,13 +1,14 @@
-"""Sampled end-to-end tracing of updates, with Perfetto export and an
-audit of the workers' stalls.
+"""Sampled end-to-end tracing of updates and reads, with Perfetto export
+and consistency audit trails.
 
 The metrics tier (:mod:`repro_torch.runtime.metrics`) answers *how much*:
-counters and windowed rates per shard and process.  This tier answers *why*
-and *where*: every layer records fixed-size events into per-thread bounded
-ring buffers — client outbox flush and clock/value blocking, wire
-write/decode, shard dequeue/apply/lock-wait, WAL append/group-commit — so
-one update's life from ``Inc()`` to its apply on the shard is
-reconstructible after the fact.
+counters and windowed rates per shard, process, replica and gateway.  This
+tier answers *why* and *where*: every layer records fixed-size events into
+per-thread bounded ring buffers — client outbox flush and clock/value
+blocking, wire write/decode, shard dequeue/apply/lock-wait, WAL
+append/group-commit, serving publish, replica ingest, gateway
+park/escalate/serve — so one update's life from ``Inc()`` to replica
+visibility is reconstructible after the fact.
 
 Design rules (the same discipline as :mod:`repro_torch.runtime.metrics`):
 
@@ -23,23 +24,24 @@ Design rules (the same discipline as :mod:`repro_torch.runtime.metrics`):
   ``rt.metrics_on``; with ``RuntimeConfig(trace=None)`` (the default) no
   ring is ever allocated.
 * **No wire-format change.**  Spans are joined on identifiers the wire
-  already carries: ``(proc, uid)`` for update parts, ``(shard, clock)`` for
-  commits.  Forked clients record into a hub of their own and ship its
-  rings to the parent in the quiesce payload they already send.
+  already carries: ``(proc, uid)`` for update parts, the publish channel's
+  ``seq`` for publish -> ingest, ``(shard, clock)`` for commits.  Forked
+  clients record into a hub of their own and ship its rings to the parent
+  in the quiesce payload they already send.
 * **The apply is done when its span ends.**  The shard's ``apply`` span
   ends after a synchronize of the current CUDA stream when its masters live
   on the card (the ``ps_apply`` launches are asynchronous); with tracing
-  off the apply path never synchronizes.
+  off the apply path never synchronizes.  A replica's ``ingest`` span
+  ends the same way.
 
 ``dump_chrome_trace`` exports the merged rings as Chrome trace-event JSON
 (one track per thread per process, update lifelines as flow events) —
-load the file in Perfetto's UI.  :func:`explain_block` turns the same
-event log into a "name the straggler" answer.  The read-side audits
-(:func:`explain_read`, :func:`staleness_timeline`) need the serving tier's
-gateway and replicas, ROADMAP Queue 1 item 5.3, and raise until it lands.
-The event kinds of that tier (``EV_PUBLISH`` … ``EV_ESCALATE``) and of
-membership (``EV_EPOCH``, item 5.4) are defined here so the numbering and
-the export match the JAX package's, but nothing records them yet.
+load the file in Perfetto's UI.  The audit helpers (:func:`explain_read`,
+:func:`explain_block`, :func:`staleness_timeline`) turn the same event log
+and the gateway's vc measurements into "name the straggler" answers; they
+are surfaced as methods on ``PSRuntime``.  Membership's ``EV_EPOCH``
+(ROADMAP Queue 1 item 5.4) is defined here so the numbering and the export
+match the JAX package's, but nothing records it yet.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # event kinds — (kind, t0_ns, dur_ns, a, b, c); arg meaning per kind below
@@ -117,6 +119,10 @@ _ARGS = {
 _POINT_KINDS = frozenset((EV_SEND, EV_CLOCK, EV_APPLY_PART,
                           EV_PUBLISH_PART, EV_INGEST_PART, EV_REPLICA_VC,
                           EV_ESCALATE, EV_EPOCH))
+
+SLO_ANY = -1          # EV_READ a-field encoding of slo=None
+SLO_FRESH = -2        # ... and of slo="fresh"
+
 
 @dataclass(frozen=True)
 class TraceConfig:
@@ -327,14 +333,35 @@ def dump_chrome_trace(hub: TraceHub, path: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-_SERVING = "ROADMAP Queue 1 item 5.3: the serving tier's gateway and replicas"
-
-
 def explain_read(result) -> dict:
-    """Why did a gateway read land where it did?  Reads the gateway's
-    ``ReadResult`` audit stamps, which the port does not have yet."""
-    raise NotImplementedError(
-        f"explain_read is not ported to repro_torch yet ({_SERVING})")
+    """Why did this read land where it did?  Pure function of the
+    :class:`~repro_torch.runtime.serving.gateway.ReadResult` audit stamps:
+    names the exact lagging ``(shard, proc)`` pair and the vector-clock gap
+    that disqualified the best replica (forcing a park/escalation), or
+    reports the replica hit."""
+    lagging = None
+    if getattr(result, "lag_shard", -1) >= 0:
+        lagging = (int(result.lag_shard), int(result.lag_proc))
+    gap = int(getattr(result, "vc_gap", 0))
+    if result.source == "master" and result.escalated and lagging:
+        summary = (f"escalated to master: shard {lagging[0]} had applied "
+                   f"only through clock vc[{lagging[1]}] of process "
+                   f"{lagging[1]} on the laggiest replica — {gap} clock(s) "
+                   f"behind the master frontier, above the requested "
+                   f"slo={result.slo!r}")
+    elif result.source == "master":
+        summary = (f"served by the master (slo={result.slo!r}; "
+                   f"no qualifying replica consulted or fresh requested)")
+    elif result.source == "cache":
+        summary = (f"cache hit re-measured at staleness "
+                   f"{result.staleness} <= slo={result.slo!r}")
+    else:
+        summary = (f"replica served at measured staleness "
+                   f"{result.staleness} <= slo={result.slo!r}")
+    return {"source": result.source, "escalated": bool(result.escalated),
+            "staleness": int(result.staleness), "slo": result.slo,
+            "waited_s": float(result.waited_s), "lagging": lagging,
+            "vc_gap": gap, "summary": summary}
 
 
 def explain_block(hub: TraceHub, process: Optional[int] = None,
@@ -377,6 +404,14 @@ def explain_block(hub: TraceHub, process: Optional[int] = None,
 def staleness_timeline(hub: TraceHub, shard: int,
                        bound: Optional[int] = None) -> dict:
     """Measured master-replica staleness over time for one shard, from the
-    replicas' ``replica_vc`` events, which the port does not record yet."""
-    raise NotImplementedError(
-        f"staleness_timeline is not ported to repro_torch yet ({_SERVING})")
+    ``replica_vc`` adoption events, against the policy bound (None for
+    value-only policies).  Points are ``(t_s, replica, staleness)`` with
+    ``t_s`` relative to the first recorded event."""
+    evs = sorted(hub.events((EV_REPLICA_VC,)), key=lambda e: e[1])
+    base = evs[0][1] if evs else 0
+    points: List[Tuple[float, int, int]] = [
+        ((t0 - base) / 1e9, int(a), int(c))
+        for _k, t0, _d, a, b, c in evs if b == shard]
+    return {"shard": int(shard), "bound": bound,
+            "max_staleness": max((p[2] for p in points), default=0),
+            "points": points}

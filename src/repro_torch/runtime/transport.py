@@ -15,7 +15,7 @@ Three interchangeable backends behind the same channel duck type
 Framing.  A frame is ``u32 payload_len | payload``.  Two payload formats
 share the stream, discriminated by the payload's first u32:
 
-* **pickle-5** (tcp, control messages)::
+* **pickle-5** (tcp, control messages, serving)::
 
       u32 n_buffers | u32 head_len | head | (u64 buf_len | buf) * n_buffers
 
@@ -63,8 +63,13 @@ Tracing.  Every channel and reader takes an optional
 ``wire_write`` span per ``send_many`` and one ``wire_decode`` span per
 decoded batch; with ``trace=None`` the only cost is one ``is None`` test.
 
-Not here yet: the non-blocking sends of the serving tier's publish path
-(``try_send_many``, a sink's free-room probe; ROADMAP Queue 1 item 5.3).
+Non-blocking sends.  The serving tier's publish path
+(:mod:`repro_torch.runtime.serving`) must never stall a shard on a wedged
+replica: a :class:`WireChannel` built with a ``try_write`` sink and a
+``room`` probe offers :meth:`WireChannel.try_send_many`, which writes one
+frame only if it fits right now (:meth:`ShmRing.try_write` through
+:func:`try_ring_writer`, or a :class:`TcpSendQueue`'s bounded queue) and
+otherwise rolls its seq stamps back.
 """
 from __future__ import annotations
 
@@ -664,12 +669,16 @@ class WireChannel:
 
     def __init__(self, name: str, write: Callable[[bytes], None],
                  max_frame: Optional[int] = None,
+                 try_write: Optional[Callable[[bytes], bool]] = None,
+                 room: Optional[Callable[[], int]] = None,
                  codec: Optional[RowCodec] = None,
                  on_flush: Optional[Callable[[], None]] = None,
                  trace: Optional["trace_mod.TraceHub"] = None):
         self.name = name
         self._write = write
         self._max_frame = max_frame    # soft cap: split batches above this
+        self._try_write = try_write    # non-blocking sink (drop-and-resync)
+        self._room = room              # its free-space probe
         self._seq = 0
         self._lock = threading.Lock()
         self._codec = codec            # raw row-block encoding (zero-copy)
@@ -723,6 +732,30 @@ class WireChannel:
             self._write_frames(msgs[mid:])
             return
         self._write(frame)
+
+    # -------------------------------------------------- non-blocking sends
+    def room(self) -> int:
+        """Free sink bytes right now (a channel built with ``room``)."""
+        return self._room()
+
+    def try_send_many(self, msgs: list) -> bool:
+        """Send one frame without blocking; False (and NO seq consumed —
+        the stamp rolls back) when the sink has no room right now.  Needs
+        a channel built with ``try_write``.  The serving publish path uses
+        this so a wedged replica can never stall the shard: its frames are
+        dropped and it is re-bootstrapped with a fresh in-stream state once
+        the sink drains."""
+        if not msgs:
+            return True
+        with self._lock:
+            for m in msgs:
+                m.seq = self._seq
+                self._seq += 1
+            frame = encode_frame(msgs)
+            if self._try_write(frame):
+                return True
+            self._seq -= len(msgs)     # dropped: the stream never saw them
+            return False
 
     def close(self) -> None:
         try:
@@ -799,6 +832,93 @@ class TcpConn:
         except OSError:
             pass
         self.sock.close()
+
+
+class TcpSendQueue:
+    """Bounded non-blocking sink over a :class:`TcpConn`: whole frames queue
+    in this process up to ``capacity`` bytes, and one writer thread sends
+    them in order with the connection's blocking ``write``.
+
+    The serving tier's tcp publish edge rides this rather than a probe of
+    the free kernel send buffer (a few MB at most), which a delta frame at
+    a real model's width never fits: the replica would stay stale for good.
+    ``room`` and ``try_write`` here behave like a shared-memory ring's of
+    the same capacity — a wedged peer fills the queue, and the shard drops
+    and resyncs instead of stalling."""
+
+    def __init__(self, conn: TcpConn, capacity: int, name: str,
+                 on_error: Callable[[BaseException], None]):
+        self.conn = conn
+        self.capacity = int(capacity)
+        self._frames: deque = deque()
+        self._queued = 0                   # bytes queued or being written
+        self._closed = False
+        self._cond = threading.Condition()
+        self._on_error = on_error
+        self.thread = threading.Thread(target=self._loop, name=name,
+                                       daemon=True)
+        self.thread.start()
+
+    def room(self) -> int:
+        with self._cond:
+            return self.capacity - self._queued
+
+    def try_write(self, data: bytes) -> bool:
+        """Queue ``data`` iff it fits right now; never blocks."""
+        with self._cond:
+            if self._closed or self._queued + len(data) > self.capacity:
+                return False
+            self._frames.append(data)
+            self._queued += len(data)
+            self._cond.notify_all()
+            return True
+
+    def write(self, data: bytes) -> None:
+        """Blocking counterpart of :meth:`try_write`: wait for room."""
+        if len(data) > self.capacity:
+            raise ValueError(f"frame of {len(data)} bytes exceeds the send "
+                             f"queue's capacity {self.capacity}")
+        with self._cond:
+            while not self._closed and (self._queued + len(data)
+                                        > self.capacity):
+                self._cond.wait()
+            if self._closed:
+                raise RuntimeError("tcp send queue closed")
+            self._frames.append(data)
+            self._queued += len(data)
+            self._cond.notify_all()
+
+    def _loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._frames and not self._closed:
+                    self._cond.wait()
+                if not self._frames:
+                    return                 # closed and drained
+                data = self._frames[0]
+            try:
+                self.conn.write(data)
+            except OSError as e:           # peer gone: drop what is queued
+                with self._cond:
+                    if not self._closed:
+                        self._on_error(e)
+                    self._frames.clear()
+                    self._queued = 0
+                return
+            with self._cond:
+                self._frames.popleft()
+                self._queued -= len(data)
+                self._cond.notify_all()    # room for a blocked write()
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop taking frames, let the writer drain what is queued (up to
+        ``timeout``), then close the socket: the FIN ends the peer's
+        reader, and a writer still blocked on a stuck peer fails out."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        self.thread.join(timeout)
+        self.conn.close()
 
 
 class TcpTransport:
@@ -1153,6 +1273,17 @@ def ring_parts_writer(ring: ShmRing, deadline: float = float("inf"),
         else:
             ring.write_parts(item, deadline)
     return write
+
+
+def try_ring_writer(ring: ShmRing, bell_w: int) -> Callable[[bytes], bool]:
+    """Non-blocking byte sink for ``WireChannel.try_send_many``: publish iff
+    the frame fits right now, ringing the bell only on success."""
+    def try_write(data: bytes) -> bool:
+        if ring.try_write(data):
+            ShmEdge.ring_bell(bell_w)
+            return True
+        return False
+    return try_write
 
 
 def ring_reader(ring: ShmRing, bell_r: int,

@@ -41,7 +41,10 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
               "repro_torch.models.model", "repro_torch.launch.steps",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.ssd_scan.ops",
-              "repro_torch.kernels.rglru_scan.ops"):
+              "repro_torch.kernels.rglru_scan.ops",
+              "repro_torch.runtime.serving",
+              "repro_torch.runtime.serving.replica",
+              "repro_torch.runtime.serving.gateway"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

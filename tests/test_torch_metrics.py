@@ -1,34 +1,45 @@
 """The port's unified metrics surface against the JAX package's.
 
 Mirrors ``tests/test_metrics.py``'s exact-reconciliation test (over the
-queue, shm and tcp transports), its windowed-rates test and its
-metrics-off test: the same seeded schedule runs through ``repro.runtime``
-and through ``repro_torch.runtime`` (``device="cpu"``), and after
-``wait()`` every total in ``rt.metrics()`` equals the authoritative
-counters exactly, and the same totals in both packages.  The serving
-tier's corners of the tree (``replicas``, ``gateways``) stay empty until
-it is ported (ROADMAP Queue 1 item 5.3); membership reports the static
-epoch-0 partition (item 5.4).
+queue, shm and tcp transports), its windowed-rates test, its metrics-off
+test and its two gateway tests (the read cache is never staler than
+requested; fresh-read shedding): the same seeded schedule runs through
+``repro.runtime`` and through ``repro_torch.runtime`` (``device="cpu"``),
+and after ``wait()`` every total in ``rt.metrics()`` equals the
+authoritative counters exactly, and the same totals in both packages.  The
+serving corners (``replicas``, ``gateways``, the shards' ``pub_*``) read
+the registered replica sets and gateways; membership reports the static
+epoch-0 partition (ROADMAP Queue 1 item 5.4).  The legacy-constructor
+tests are not mirrored: the port's ``PSRuntime`` takes only a
+``RuntimeConfig``.
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
 
 from repro.core import policies as ref_policies
+from repro.runtime import FRESH as REF_FRESH
 from repro.runtime import PSRuntime as RefPSRuntime
+from repro.runtime import ReadGateway as RefReadGateway
+from repro.runtime import ReadShedError as RefReadShedError
 from repro.runtime import RuntimeConfig as RefRuntimeConfig
 from repro.runtime import metrics as ref_metrics
 from repro_torch.core import policies
-from repro_torch.runtime import PSRuntime, RuntimeConfig, RuntimeMetrics
+from repro_torch.runtime import (FRESH, PSRuntime, ReadGateway,
+                                 ReadShedError, RuntimeConfig,
+                                 RuntimeMetrics)
 from repro_torch.runtime import metrics as metrics_mod
 
 pytestmark = pytest.mark.filterwarnings("ignore:os.fork:RuntimeWarning")
 
 REF = dict(PSRuntime=RefPSRuntime, RuntimeConfig=RefRuntimeConfig,
-           policies=ref_policies, kw={})
+           policies=ref_policies, ReadGateway=RefReadGateway,
+           ReadShedError=RefReadShedError, FRESH=REF_FRESH, kw={})
 PORT = dict(PSRuntime=PSRuntime, RuntimeConfig=RuntimeConfig,
-            policies=policies, kw={"device": "cpu"})
+            policies=policies, ReadGateway=ReadGateway,
+            ReadShedError=ReadShedError, FRESH=FRESH, kw={"device": "cpu"})
 PKGS = (("ref", REF), ("port", PORT))
 
 
@@ -144,3 +155,107 @@ def test_metrics_tree_type_and_snapshot_corner(tmp_path):
         assert m.snapshots.last_clock == rt.snapshots[-1][0]
         assert 6 <= m.snapshots.last_clock <= 8
     assert isinstance(m, RuntimeMetrics)
+
+
+# ---------------------------------------------------------------------------
+# the serving corners: gateways, replicas, publish backpressure
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.serving
+def test_gateway_cache_never_staler_than_requested():
+    for _, P in PKGS:
+        rt = P["PSRuntime"](P["RuntimeConfig"](
+            2, P["policies"].ssp(2), _x0(), n_shards=2, **P["kw"]))
+        rt.start(_fn(11), 12, timeout=60.0)
+        gw = P["ReadGateway"](rt, n_replicas=1, read_cache=True)
+        try:
+            seen = []
+            while rt.running and rt.completed_clock() < 12:
+                for slo in (0, 1, None):
+                    res = gw.read("a", slo=slo, timeout=10.0)
+                    if isinstance(slo, int):
+                        assert res.staleness <= slo, (res.source,
+                                                      res.staleness)
+                    seen.append(res.source)
+            rt.wait()
+            # the frontier advanced since every mid-run cache fill, so a
+            # final slo=0 read reflects the final master state
+            final = gw.read("a", slo=0, timeout=10.0)
+            np.testing.assert_array_equal(
+                final.value, rt.master_value("a").reshape(final.value.shape))
+            assert final.staleness == 0
+            # and now the cache can serve it: hit, stamped 0 against the vc
+            hit = gw.read("a", slo=0, timeout=10.0)
+            assert hit.source == "cache" and hit.staleness == 0
+            np.testing.assert_array_equal(hit.value, final.value)
+            m = rt.metrics()
+            assert m.gateways[0].n_cache_hits == gw.stats.n_cache_hits >= 1
+            assert m.gateways[0].reads_by_slo.get("0", 0) >= 2
+        finally:
+            gw.close()
+
+
+@pytest.mark.serving
+def test_gateway_shed_fresh_admission():
+    # the gateway subscribes before the run, so its bounded read finds a
+    # caught-up replica (built after wait(), the replica never bootstraps
+    # and the read escalates at its 30 s deadline, as in the reference)
+    for _, P in PKGS:
+        rt = P["PSRuntime"](P["RuntimeConfig"](
+            2, P["policies"].ssp(2), _x0(), n_shards=2, **P["kw"]))
+        gw = P["ReadGateway"](rt, n_replicas=1, read_cache=False)
+        try:
+            rt.run(_fn(7), 8, timeout=60.0)
+            gw.set_shed_fresh(True)
+            with pytest.raises(P["ReadShedError"]):
+                gw.read("a", slo=P["FRESH"])
+            res = gw.read("a", slo=1)        # bounded reads still admitted
+            assert res.staleness <= 1
+            gw.set_shed_fresh(False)
+            assert gw.read("a", slo=P["FRESH"]).source == "master"
+            m = rt.metrics()
+            assert m.gateways[0].n_shed == 1
+            assert not m.gateways[0].shedding_fresh
+            assert m.gateways[0].reads_by_slo["fresh"] == 2
+        finally:
+            gw.close()
+
+
+@pytest.mark.serving
+def test_serving_metrics_reconcile_with_the_replicas():
+    """Subscribed before the run, one replica ingests every publish: at
+    quiesce the tree's replica corner reports it caught up, its delta and
+    byte counts equal the object's, and both packages count the same
+    bytes ingested (every applied row's delta, once per replica)."""
+    totals = {}
+    for name, P in PKGS:
+        rt = P["PSRuntime"](P["RuntimeConfig"](
+            2, P["policies"].ssp(2), _x0(), n_shards=2, **P["kw"]))
+        gw = P["ReadGateway"](rt, n_replicas=2)
+        try:
+            rt.run(_fn(7), 8, timeout=60.0)
+            rset = gw.replicas
+            deadline = time.monotonic() + 15
+            while any(rset.staleness(r.vc, rset.master_vc())
+                      for r in rset.replicas):
+                assert time.monotonic() < deadline, f"{name}: no catch-up"
+                time.sleep(5e-3)
+            res = gw.read("a", slo=0, timeout=10.0)
+            m = rt.metrics()
+            assert [r.rid for r in m.replicas] == [0, 1]
+            for rm, rep in zip(m.replicas, rset.replicas):
+                assert rm.staleness == 0 and not rm.poisoned and not rm.stale
+                assert rm.deltas_applied == rep.deltas_applied > 0
+                assert rm.bytes_ingested == rep.bytes_ingested
+            assert sum(r.reads for r in m.replicas) == 1
+            assert m.gateways[0].n_replica_reads == 1
+            assert m.gateways[0].n_live_replicas == 2
+            assert res.source.startswith("replica:")
+            assert all(s.pub_drops == s.pub_resyncs == 0 for s in m.shards)
+            assert all(s.pub_pending == 0 for s in m.shards)
+            totals[name] = [r.bytes_ingested for r in m.replicas]
+        finally:
+            gw.close()
+    assert totals["port"] == totals["ref"]
+    assert totals["port"][0] == totals["port"][1] > 0

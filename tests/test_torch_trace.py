@@ -1,15 +1,16 @@
 """The port's tracing tier against the JAX package's.
 
-Mirrors ``tests/test_trace.py`` where no gateway or replica is involved:
-config normalization, exact reconciliation after quiesce over the queue,
-shm and tcp transports (the forked clients' rings ride home with their
-final state), sampling, the Chrome export's client -> shard lifelines,
-``explain_block`` and the monotonic-clocks-only scan (pointed at
-``repro_torch/runtime``).  Each test runs the same seeded schedule through
-``repro.runtime`` and through ``repro_torch.runtime`` (``device="cpu"``);
-the counts that do not depend on thread timing agree exactly.  The
-read-side audits (``explain_read``, ``staleness_timeline``) need the
-serving tier and raise in the port, naming ROADMAP Queue 1 item 5.3.
+Mirrors ``tests/test_trace.py``: config normalization, exact
+reconciliation after quiesce over the queue, shm and tcp transports (the
+forked clients' rings ride home with their final state), sampling, the
+Chrome export's client -> shard lifelines and, with a read gateway, its
+shard -> replica ones, ``explain_read`` naming the lagging pair,
+``explain_block``, ``staleness_timeline`` rebuilding replica lag and the
+monotonic-clocks-only scan (pointed at ``repro_torch/runtime``).  Each test
+runs the same seeded schedule through ``repro.runtime`` and through
+``repro_torch.runtime`` (``device="cpu"``); the counts that do not depend
+on thread timing agree exactly, and the audits give the same answers on
+the same stamps and rings.
 """
 import json
 import os
@@ -19,19 +20,23 @@ import pytest
 
 from repro.core import policies as ref_policies
 from repro.runtime import PSRuntime as RefPSRuntime
+from repro.runtime import ReadGateway as RefReadGateway
+from repro.runtime import ReadResult as RefReadResult
 from repro.runtime import RuntimeConfig as RefRuntimeConfig
 from repro.runtime import trace as ref_trace
 from repro_torch.core import policies
-from repro_torch.runtime import (PSRuntime, RuntimeConfig, TraceConfig,
-                                 explain_read)
+from repro_torch.runtime import (PSRuntime, ReadGateway, ReadResult,
+                                 RuntimeConfig, TraceConfig, explain_read)
 from repro_torch.runtime import trace as trace_mod
 
 pytestmark = pytest.mark.filterwarnings("ignore:os.fork:RuntimeWarning")
 
 REF = dict(PSRuntime=RefPSRuntime, RuntimeConfig=RefRuntimeConfig,
-           policies=ref_policies, trace=ref_trace, kw={})
+           policies=ref_policies, trace=ref_trace, ReadGateway=RefReadGateway,
+           ReadResult=RefReadResult, kw={})
 PORT = dict(PSRuntime=PSRuntime, RuntimeConfig=RuntimeConfig,
-            policies=policies, trace=trace_mod, kw={"device": "cpu"})
+            policies=policies, trace=trace_mod, ReadGateway=ReadGateway,
+            ReadResult=ReadResult, kw={"device": "cpu"})
 PKGS = (("ref", REF), ("port", PORT))
 
 
@@ -97,6 +102,8 @@ def test_event_kinds_and_names_match_the_reference():
     assert trace_mod._NAMES == ref_trace._NAMES
     assert trace_mod._ARGS == ref_trace._ARGS
     assert trace_mod._POINT_KINDS == ref_trace._POINT_KINDS
+    assert (trace_mod.SLO_ANY, trace_mod.SLO_FRESH) == (ref_trace.SLO_ANY,
+                                                        ref_trace.SLO_FRESH)
     for sample in (0.1, 0.5, 1.0):
         a = trace_mod.TraceHub(TraceConfig(sample=sample))
         b = ref_trace.TraceHub(ref_trace.TraceConfig(sample=sample))
@@ -110,12 +117,13 @@ def test_trace_off_by_default():
         assert rt._trace is None and not rt.trace_on
         with pytest.raises(RuntimeError, match="tracing is off"):
             rt.dump_trace(os.devnull)
-    # the read audits need the serving tier: the port says which item
-    rt, _ = _run(PORT, "queue")
-    with pytest.raises(NotImplementedError, match="item 5.3"):
-        rt.explain_read(object())
-    with pytest.raises(NotImplementedError, match="item 5.3"):
-        explain_read(object())
+        # explain_read stays usable without tracing: it is a pure function
+        # of the ReadResult stamps
+        with P["ReadGateway"](rt, n_replicas=1) as gw:
+            res = gw.read("a", slo=None)
+            info = rt.explain_read(res)
+        assert info["source"].startswith(("replica", "master", "cache"))
+        assert info == P["trace"].explain_read(res)
 
 
 def test_no_trace_ring_is_allocated_when_trace_is_none(monkeypatch):
@@ -223,6 +231,43 @@ def test_dump_trace_is_valid_chrome_json_with_lifelines(tmp_path, transport):
         assert s_pids == {pid_of[f"client-p{p}"] for p in range(rt.n_proc)}
 
 
+@pytest.mark.parametrize("serving", ["queue", "shm"])
+def test_dump_trace_lifelines_reach_the_replica(tmp_path, serving):
+    """With a read gateway subscribed before the run, the export's
+    lifelines span client -> shard (send/apply) and shard -> replica
+    (publish/ingest), every flow start binding a flow end, in both
+    packages; the port's publish and ingest points pair up one to one."""
+    for name, P in PKGS:
+        tm = P["trace"]
+        rt = P["PSRuntime"](P["RuntimeConfig"](
+            2, P["policies"].ssp(2), _x0(), n_shards=2, transport="queue",
+            trace=True, **P["kw"]))
+        with P["ReadGateway"](rt, n_replicas=1, transport=serving) as gw:
+            rt.start(_fn(7), 6, timeout=60.0)
+            rt.wait()
+            gw.read("a", slo=0)
+            path = tmp_path / f"{name}-{serving}.json"
+            info = rt.dump_trace(str(path))
+            counts = rt._trace.counts()
+        assert info["path"] == str(path) and info["dropped"] == 0
+        doc = json.loads(path.read_text())
+        evs = doc["traceEvents"]
+        slices = [e for e in evs if e["ph"] == "X"]
+        assert all(e["dur"] >= 1.0 and e["ts"] >= 0.0 for e in slices)
+        starts = {e["id"] for e in evs if e["ph"] == "s"}
+        ends = {e["id"] for e in evs if e["ph"] == "f"}
+        bound = starts & ends
+        assert {i for i in bound if not (i >> 62)}, "no client->shard lifeline"
+        assert {i for i in bound if i >> 62}, "no shard->replica lifeline"
+        assert all(e.get("bp") == "e" for e in evs if e["ph"] == "f")
+        for kind in (tm.EV_PUBLISH, tm.EV_PUBLISH_PART, tm.EV_INGEST,
+                     tm.EV_INGEST_PART, tm.EV_REPLICA_VC, tm.EV_READ):
+            assert counts.get(kind, 0) > 0, tm._NAMES[kind]
+        if name == "port":
+            assert starts == ends
+            assert counts[tm.EV_PUBLISH_PART] == counts[tm.EV_INGEST_PART]
+
+
 def test_chrome_export_matches_the_reference_on_the_same_rings(tmp_path):
     """The same recorded rings export to the same Chrome document."""
     rng = np.random.default_rng(3)
@@ -287,9 +332,105 @@ def test_explain_block_matches_the_reference_on_the_same_rings():
 
 
 def test_staleness_timeline_waits_for_the_serving_tier():
-    rt, _ = _run(PORT, "queue", trace=True)
-    with pytest.raises(NotImplementedError, match="item 5.3"):
-        rt.staleness_timeline(0)
+    """Without a replica there is no vc adoption to measure: the timeline
+    of every shard is empty, in both packages."""
+    for _, P in PKGS:
+        rt, _ = _run(P, "queue", trace=True)
+        for sid in range(rt.n_slots):
+            tl = rt.staleness_timeline(sid)
+            assert tl == {"shard": sid, "bound": 2, "max_staleness": 0,
+                          "points": []}
+
+
+def test_staleness_timeline_reconstructs_replica_lag():
+    for _, P in PKGS:
+        rt = P["PSRuntime"](P["RuntimeConfig"](
+            2, P["policies"].ssp(2), _x0(), n_shards=2, transport="queue",
+            trace=True, **P["kw"]))
+        with P["ReadGateway"](rt, n_replicas=1) as gw:
+            rt.start(_fn(7), 6, timeout=60.0)
+            rt.wait()
+            gw.read("a", slo=0)
+            tl = rt.staleness_timeline(0)
+        assert tl["shard"] == 0
+        assert tl["bound"] == rt.policy.staleness  # ssp: clock-bounded
+        assert tl["points"], "no replica_vc adoptions recorded for shard 0"
+        for t_s, rid, lag in tl["points"]:
+            assert t_s >= 0.0 and rid >= 0 and lag >= 0
+        assert tl["max_staleness"] == max(p[2] for p in tl["points"])
+        ts = [p[0] for p in tl["points"]]
+        assert ts == sorted(ts)
+
+
+def test_staleness_timeline_matches_the_reference_on_the_same_rings():
+    evs = [(trace_mod.EV_REPLICA_VC, 30, 0, 0, 1, 2),
+           (trace_mod.EV_REPLICA_VC, 10, 0, 1, 0, 0),
+           (trace_mod.EV_REPLICA_VC, 20, 0, 0, 0, 3),
+           (trace_mod.EV_APPLY, 5, 9, 0, 1, 2)]
+    ring = [{"proc": "server", "thread": "t", "dropped": 0, "events": evs}]
+    out = []
+    for _, P in PKGS:
+        tm = P["trace"]
+        hub = tm.TraceHub(tm.TraceConfig())
+        hub.adopt(ring)
+        out.append([tm.staleness_timeline(hub, s, bound=b)
+                    for s in (0, 1) for b in (None, 3)])
+    assert out[0] == out[1]
+    assert out[1][0]["points"] == [(0.0, 1, 0), (1e-8, 0, 3)]
+
+
+# ---------------------------------------------------------------------------
+# read audit: explain_read
+# ---------------------------------------------------------------------------
+
+
+def test_explain_read_names_the_lagging_pair():
+    """A deliberately wedged replica forces an escalation; explain_read
+    names the exact (shard slot, process) vector-clock cell that trailed
+    the master frontier furthest."""
+    for _, P in PKGS:
+        tm = P["trace"]
+        rt = P["PSRuntime"](P["RuntimeConfig"](
+            2, P["policies"].ssp(2), _x0(), n_shards=2, transport="queue",
+            trace=True, **P["kw"]))
+        gw = P["ReadGateway"](rt, n_replicas=1, transport="shm")
+        rset = gw.replicas
+        rset.wedge(0)                      # stop draining before any delta
+        rt.start(_fn(3), 6, timeout=60.0)
+        rt.wait()
+        try:
+            res = gw.read("a", slo=0, timeout=0.4)
+            assert res.escalated and res.source == "master"
+            rep = rset.replicas[0]
+            gap = rset.master_vc() - rep.vc
+            s, p = np.unravel_index(int(gap.argmax()), gap.shape)
+            expect = (int(s), int(p))
+            info = rt.explain_read(res)
+            assert info["escalated"] and info["lagging"] == expect
+            assert info["vc_gap"] == max(int(gap.max()), 0) > 0
+            assert f"shard {expect[0]}" in info["summary"]
+            assert f"process {expect[1]}" in info["summary"]
+            counts = rt._trace.counts()
+            assert counts.get(tm.EV_ESCALATE, 0) >= 1
+            assert counts.get(tm.EV_READ, 0) >= 1
+            assert counts.get(tm.EV_PARK, 0) >= 1
+            assert tm.explain_read(res) == info
+        finally:
+            rset.wedge(0, wedged=False)
+            gw.close()
+
+
+@pytest.mark.parametrize("source,escalated,lag", [
+    ("master", True, (1, 0, 4)), ("master", False, (-1, -1, 0)),
+    ("cache", False, (-1, -1, 0)), ("replica:1", False, (-1, -1, 0))])
+def test_explain_read_matches_the_reference_on_the_same_stamps(
+        source, escalated, lag):
+    out = []
+    for _, P in PKGS:
+        res = P["ReadResult"](np.zeros(3), "a", source, 0 if source ==
+                              "master" else 2, 3, escalated, 0.25, *lag)
+        out.append(P["trace"].explain_read(res))
+    assert out[0] == out[1]
 
 
 # ---------------------------------------------------------------------------

@@ -752,3 +752,261 @@ def test_state_receive_gives_none_on_eof_or_deadline():
     finally:
         os.close(r)
         os.close(w)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier's messages and non-blocking sends
+# ---------------------------------------------------------------------------
+
+
+def test_frame_roundtrip_serving_and_ackbatch_msgs():
+    """The serving-tier publish messages and the batched ack round-trip the
+    codec, numpy buffers (uids, vcs, dense state blocks) intact, and the
+    fields are the JAX package's."""
+    rng = np.random.default_rng(7)
+    rows = np.arange(0, 12, 2)
+    delta = rng.normal(size=(6, 3))
+    state = {"k": {"rows": rows.copy(), "values": delta.copy()},
+             "k2": {"rows": np.arange(4), "values": rng.normal(size=(4, 1))}}
+    vc = np.array([3, -1, 7], dtype=np.int64)
+    msgs = [
+        M.AckBatchMsg(np.arange(17, dtype=np.int64), 1),
+        M.ReplicaDeltaMsg(0, "k", rows, delta, epoch=2),
+        M.ReplicaVcMsg(1, vc),
+        M.ReplicaStateMsg(0, state, vc, epoch=1),
+        M.ReplicaFinMsg(1),
+        M.UnsubscribeMsg(3),
+    ]
+    got = T.FrameDecoder().feed(T.encode_frame(msgs))
+    assert [type(m) for m in got] == [type(m) for m in msgs]
+    np.testing.assert_array_equal(got[0].uids, msgs[0].uids)
+    assert got[0].process == 1
+    np.testing.assert_array_equal(got[1].delta, delta)
+    assert got[1].epoch == 2 and got[1].nbytes == delta.nbytes
+    np.testing.assert_array_equal(got[2].clock_vc, vc)
+    for key in state:
+        np.testing.assert_array_equal(got[3].state[key]["rows"],
+                                      state[key]["rows"])
+        np.testing.assert_array_equal(got[3].state[key]["values"],
+                                      state[key]["values"])
+    assert got[3].epoch == 1
+    assert got[4].shard == 1 and got[5].replica == 3
+    for name in ("SubscribeMsg", "UnsubscribeMsg", "ReplicaStateMsg",
+                 "ReplicaDeltaMsg", "ReplicaVcMsg", "ReplicaFinMsg"):
+        assert (list(getattr(M, name).__dataclass_fields__)
+                == list(getattr(RM, name).__dataclass_fields__)), name
+
+
+def test_serving_shm_refuses_weakly_ordered_isa(monkeypatch):
+    from repro_torch.core import policies
+    from repro_torch.runtime import PSRuntime, RuntimeConfig
+    from repro_torch.runtime.serving import ReplicaSet
+
+    rt = PSRuntime(RuntimeConfig(1, policies.ssp(1), {"a": np.zeros(4)},
+                                 n_shards=1, device="cpu"))
+    monkeypatch.setattr(platform, "machine", lambda: "aarch64")
+    with pytest.raises(RuntimeError, match=r'transport="tcp"'):
+        ReplicaSet(rt, 1, transport="shm")
+
+
+def test_try_send_many_drops_whole_frames_and_rolls_the_seq_back():
+    """A full ring refuses the frame without blocking, and the stream never
+    sees the dropped messages: their seqs are reused by the next send, so
+    the receiver's FIFO check stays clean."""
+    def delta():
+        return M.ReplicaDeltaMsg(0, "k", np.arange(8), np.ones((8, 4)))
+
+    probe = delta()
+    probe.seq = 1                       # the size of a stamped frame
+    size = len(T.encode_frame([probe]))
+    cap = 2 * size - 1                  # room for one such frame, not two
+    ring = T.ShmRing.create(cap)
+    r, w = os.pipe()
+    os.set_blocking(w, False)
+    try:
+        chan = T.WireChannel("pub", T.ring_writer(ring, w),
+                             try_write=T.try_ring_writer(ring, w),
+                             room=ring.free_bytes)
+        assert chan.room() == cap
+        assert chan.try_send_many([delta()])
+        used = cap - chan.room()
+        assert used == size
+        big = [delta()]
+        assert not chan.try_send_many(big)          # does not fit: dropped
+        assert big[0].seq == 1 and chan.room() == cap - used
+        assert os.read(r, 16) == b"\x01"            # rung once, on success
+        first = T.FrameDecoder().feed(ring.read_available())
+        assert chan.try_send_many([_ack(1), _ack(2)])
+        got = first + T.FrameDecoder().feed(ring.read_available())
+        assert [m.seq for m in got] == [0, 1, 2]
+        assert [int(m.uids[0]) for m in got[1:]] == [1, 2]
+        fifo = T.FifoAssert()
+        assert all(fifo.check("pub", m.seq) is None for m in got)
+    finally:
+        ring.close()
+        ring.unlink()
+        os.close(r)
+        os.close(w)
+
+
+def test_tcp_send_queue_is_bounded_ordered_and_never_blocks():
+    """The serving tcp edge's sink: whole frames queue up to its capacity
+    and go out in order; a stalled peer fills it and try_write refuses
+    without blocking; once the peer drains, room comes back."""
+    import socket
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    cli = socket.create_connection(srv.getsockname())
+    peer, _ = srv.accept()
+    srv.close()
+    errors = []
+    cap = 1 << 16
+    q = T.TcpSendQueue(T.TcpConn(cli), cap, "tx-test", errors.append)
+    try:
+        frames = [bytes([i]) * 1000 for i in range(40)]
+        assert all(q.try_write(f) for f in frames)
+        got = b""
+        deadline = time.monotonic() + 10
+        while len(got) < 40_000:
+            assert time.monotonic() < deadline
+            got += peer.recv(1 << 16)
+        assert got == b"".join(frames)
+        # stall the peer: kernel buffers fill, then the queue does
+        chunk = b"s" * (cap // 4)
+        deadline = time.monotonic() + 30
+        t_max = 0.0
+        while True:
+            t0 = time.monotonic()
+            ok = q.try_write(chunk)
+            t_max = max(t_max, time.monotonic() - t0)
+            if not ok:
+                break
+            assert time.monotonic() < deadline, "queue never filled"
+        assert t_max < 1.0                      # never blocked
+        assert q.room() < len(chunk)
+        peer.setblocking(False)
+        deadline = time.monotonic() + 30
+        while q.room() < cap:
+            assert time.monotonic() < deadline, "queue never drained"
+            try:
+                peer.recv(1 << 20)
+            except BlockingIOError:
+                time.sleep(1e-3)
+        assert q.try_write(b"end") and errors == []
+    finally:
+        q.close()
+        assert not q.thread.is_alive()
+        peer.close()
+
+
+def _tcp_pair():
+    """A loopback connection whose kernel buffers are small and fixed (set
+    explicitly, they do not grow), so a stalled peer backs up quickly."""
+    import socket
+
+    srv = socket.socket()
+    srv.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 15)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    cli = socket.socket()
+    cli.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 1 << 15)
+    cli.connect(srv.getsockname())
+    peer, _ = srv.accept()
+    srv.close()
+    return cli, peer
+
+
+def _drain_until(peer, want: int, deadline_s: float = 30.0) -> bytes:
+    got = b""
+    deadline = time.monotonic() + deadline_s
+    while len(got) < want:
+        assert time.monotonic() < deadline, "peer never got the bytes"
+        got += peer.recv(1 << 20)
+    return got
+
+
+def test_try_send_many_over_a_tcp_send_queue_rolls_the_seq_back():
+    """The tcp serving edge: a stalled peer fills the send queue, the
+    refused frames consume no seq, and once the peer drains, the stream it
+    decodes has contiguous seqs (the receiver's FIFO check stays clean)."""
+    cli, peer = _tcp_pair()
+    errors = []
+    cap = 1 << 16
+    q = T.TcpSendQueue(T.TcpConn(cli), cap, "tx-test", errors.append)
+    chan = T.WireChannel("pub", q.write, try_write=q.try_write, room=q.room)
+    try:
+        sent = 0
+        refused = 0
+        deadline = time.monotonic() + 30
+        while refused < 3:
+            assert time.monotonic() < deadline, "queue never filled"
+            msg = M.ReplicaDeltaMsg(0, "k", np.arange(64),
+                                    np.full((64, 8), float(sent)))
+            if chan.try_send_many([msg]):
+                assert msg.seq == sent
+                sent += 1
+            else:
+                assert msg.seq == sent          # stamped, then rolled back
+                refused += 1
+        assert chan.room() == q.room() < cap
+        dec = T.FrameDecoder()
+        got = []
+        peer.settimeout(30)
+        while len(got) < sent:
+            got += dec.feed(peer.recv(1 << 20))
+        assert [m.seq for m in got] == list(range(sent))
+        assert [float(m.delta[0, 0]) for m in got] == [float(i)
+                                                       for i in range(sent)]
+        fifo = T.FifoAssert()
+        assert all(fifo.check("pub", m.seq) is None for m in got)
+        assert chan.try_send_many([_ack(9)]) and errors == []
+        assert dec.feed(peer.recv(1 << 16))[0].seq == sent
+    finally:
+        q.close()
+        peer.close()
+
+
+def test_tcp_send_queue_blocking_write_waits_for_room_then_fails_closed():
+    """The blocking ``write`` (a channel's EOF and its oversized sends)
+    waits for room instead of refusing, rejects a frame larger than the
+    whole queue, and fails once the queue is closed."""
+    cli, peer = _tcp_pair()
+    errors = []
+    cap = 1 << 16
+    q = T.TcpSendQueue(T.TcpConn(cli), cap, "tx-test", errors.append)
+    try:
+        with pytest.raises(ValueError, match="capacity"):
+            q.write(b"x" * (cap + 1))
+        # the peer is not reading: kernel buffers fill, then the queue does
+        total = 0
+        deadline = time.monotonic() + 30
+        while True:
+            room = q.room()
+            if room and q.try_write(b"w" * room):
+                total += room
+            elif not room:
+                time.sleep(0.1)
+                if q.room() == 0:               # full, and staying full
+                    break
+            assert time.monotonic() < deadline, "queue never filled"
+        done = threading.Event()
+
+        def blocked():
+            q.write(b"last")
+            done.set()
+
+        th = threading.Thread(target=blocked, daemon=True)
+        th.start()
+        assert not done.wait(0.2)               # no room: it waits
+        got = _drain_until(peer, total + 4)
+        assert done.wait(10) and got.endswith(b"last")
+        assert errors == []
+    finally:
+        q.close()
+        peer.close()
+    assert not q.thread.is_alive()
+    assert not q.try_write(b"late")
+    with pytest.raises(RuntimeError, match="closed"):
+        q.write(b"late")
