@@ -101,6 +101,40 @@ Phases, each printed as one JSON line:
            ps_apply launched by replica ingest and by the shards, with its
            profile events equal to its launches in the window; topk_mag
            not launched.
+  elastic  elastic shard membership at full width.  Main run: the wire
+           phase's run (shm, zero-copy, 4 forked clients, ssp(1), the
+           50,000 x 1,000 f64 masters on the card) with n_shards=2,
+           max_shards=3, 4 clocks and the plan [(1, "add", 2), (2,
+           "remove", 0)], one shm-served replica behind a ReadGateway built
+           after start() and the replicas phase's reader cycling the SLOs.
+           The workers' last clock waits (60 s at most) until both ops
+           installed, so the plan cannot lose a race against the run's end.
+           The launch counters set to 0 just before start() and read after
+           the replica caught up; torch.profiler entered once the clients
+           are forked.  Prints each op's wall from EpochBegin to the last
+           install (split into the handoff, the reassembly and install
+           enqueue, the install confirms) and the device bytes it copied
+           (the handoff clones, the reassembled master, the installed
+           blocks); the migration's device time, re-timed with CUDA events
+           at the run's shapes, and the profile's kernels of its kinds by
+           name (the replica's bootstrap copies share one of them);
+           ps_apply's launches by site (the shards, the held next-epoch
+           replay "epoch_replay", replica ingest) and the shards' launches
+           after the first install; peak device memory,
+           the idle share and the wire phase's wall.  Checks: both plan
+           results "ok", the active slots (1, 2), epochs 1 and 2 in the
+           membership log; no violations, parts sent = applied; the master
+           and every shipped cache x0 + sum(updates); every read within its
+           SLO; the replica bitwise the master at quiesce; every active
+           slot's blocks f64 on the card in the new partition's shape and
+           slot 0's (0, C); the shards launched ps_apply after the first
+           install; its kernel's events in the profile equal to its
+           launches in the window.  Then the autoscaler run: shm, 3
+           clocks, 1 of 2 slots active, AutoscalePolicy(split_imbalance=1.0,
+           split_min_rows_s=0.0, min_shards=2) polling from start(); the
+           last clock waits for its op.  Prints every action.  Checks: an
+           add_shard that succeeded, no other failed action but one racing
+           the run's end, the master exact, the audit clean.
   lda_spmd the second path: run_lda_spmd(device="cuda") on the same corpus,
            4 replicas of the 50,000 x 1,000 and 1,000 float32 tables stacked
            on the card, 3 clocks under cvap(2, v), the vap_accum launch
@@ -1094,7 +1128,7 @@ def run_lda_phase(dev, corpus, corpus_s):
 WIRE_BSP_CLOCKS = 2
 
 
-def _wire_runtime(dev, corpus, policy, transport, **kw):
+def _wire_runtime(dev, corpus, policy, transport, n_shards=N_SHARDS, **kw):
     """The lda phase's configuration as a PSRuntime with its update_fn,
     states drawn afresh from seed 0 (run_lda's defaults: alpha 0.1, beta
     0.01)."""
@@ -1105,7 +1139,7 @@ def _wire_runtime(dev, corpus, policy, transport, **kw):
     fn = lda._make_update_fn(states, corpus.vocab_size, 0.1, 0.01)
     rt = PSRuntime(RuntimeConfig(
         N_WORKERS, policy, {"word_topic": wt0, "topic": tc0},
-        n_shards=N_SHARDS, threads_per_process=1, seed=0,
+        n_shards=n_shards, threads_per_process=1, seed=0,
         transport=transport, device=dev, **kw))
     return rt, fn
 
@@ -1741,6 +1775,315 @@ def run_replicas_phase(dev, corpus, wire_wall_s):
 
 
 SPMD_STALENESS = 2
+# elastic membership: the plan of the main run (an add, then the original
+# slot 0 retired), its depth, and the autoscaler run's depth.  The workers'
+# last clock waits at most ELASTIC_GATE_S for the ops to install.
+ELASTIC_PLAN = [(1, "add", 2), (2, "remove", 0)]
+ELASTIC_SLOTS = 3
+ELASTIC_CLOCKS = 4
+AUTOSCALE_CLOCKS = 3
+ELASTIC_GATE_S = 60.0
+# the migration's kinds of copy kernel by name: the handoff's clones (a
+# device to device copy), the reassembly's index_copy_ (the replica's
+# in-stream bootstraps share its kernel), the install's index_select (a
+# gather)
+MIGRATION_KERNEL = re.compile(r"index_copy|DtoD|gather", re.IGNORECASE)
+
+
+def _gate_last_clock(rt, fn, want, n_clocks):
+    """Wrap ``fn`` so that every worker's last clock waits (at most
+    ELASTIC_GATE_S) until ``want`` membership ops installed.  The counter
+    is shared memory made before the fork, so the forked clients read it;
+    a membership listener bumps it."""
+    import multiprocessing
+
+    count = multiprocessing.get_context("fork").Value("i", 0)
+
+    def on_epoch(*args):
+        with count.get_lock():
+            count.value += 1
+
+    rt.membership.add_listener(on_epoch)
+
+    def gated(w, clock, view, rng):
+        if clock == n_clocks - 1:
+            deadline = time.monotonic() + ELASTIC_GATE_S
+            while count.value < want and time.monotonic() < deadline:
+                time.sleep(0.005)
+        return fn(w, clock, view, rng)
+    return gated
+
+
+def _migration_ms(dev, rt):
+    """The migration's device work re-timed at the run's shapes: the
+    handoff clones of two slots' blocks, the reassembly, the install's
+    gathers for three slots (an add, 2 -> 3 slots), CUDA events around
+    each, median of REPS."""
+    from repro_torch.runtime.membership import Partition, assemble_on_device
+
+    old = Partition(0, (0, 1), rt._row_counts)
+    new = Partition(1, (0, 1, 2), rt._row_counts)
+    shapes = {k: (r, rt._x0[k].shape[1]) for k, r in rt._row_counts.items()}
+    blocks = {sid: {k: torch.rand((old.rows_of(k, sid).size, c),
+                                  dtype=torch.float64, device=dev)
+                    for k, (_, c) in shapes.items()} for sid in (0, 1)}
+
+    def handoff():
+        return [{k: (old.rows_of(k, sid), b.clone())
+                 for k, b in blocks[sid].items()} for sid in (0, 1)]
+
+    hand = handoff()
+
+    def assemble():
+        return assemble_on_device(hand, shapes, dev)
+
+    full = assemble()
+
+    def install():
+        return [{k: v.index_select(0, torch.from_numpy(
+            new.rows_of(k, sid)).to(dev)) for k, v in full.items()}
+            for sid in (0, 1, 2)]
+
+    out = {"handoff_clone": cuda_ms(handoff), "assemble": cuda_ms(assemble),
+           "install_gather": cuda_ms(install)}
+    out["total"] = sum(out.values())
+    del blocks, hand, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_elastic_phase(dev, corpus, wire_wall_s):
+    """Elastic membership at full width: the wire phase's run with 3
+    slots, an add and a remove mid-run, a replica served over shm; then
+    the autoscaler run.  Returns the main run's launches and its ps_apply
+    launches by site, and the autoscaler run's launches."""
+    import threading
+
+    from repro_torch.core import policies
+    from repro_torch.kernels.ps_apply import ops as apply_ops
+    from repro_torch.runtime import (Autoscaler, AutoscalePolicy,
+                                     MembershipPlan, ReadGateway)
+    from repro_torch.runtime.serving.replica import INGEST_SITE
+    from repro_torch.runtime.shard import REPLAY_SITE
+
+    # a short profiler run before the fork sets CUPTI up, as in durable
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    plan = MembershipPlan.parse(ELASTIC_PLAN)
+    rt, fn = _wire_runtime(dev, corpus, policies.ssp(1), "shm",
+                           zero_copy=True, max_shards=ELASTIC_SLOTS,
+                           membership_plan=plan)
+    fn = _gate_last_clock(rt, fn, len(ELASTIC_PLAN), ELASTIC_CLOCKS)
+    at_install = []
+
+    def note_install(epoch, part, added, removed):
+        # launches so far, and every slot's blocks against the partition
+        layout = {}
+        for s in rt.shards:
+            with s.lock:
+                layout[s.sid] = [(str(b.device), str(b.dtype),
+                                  tuple(b.shape), part.rows_of(k, s.sid).size)
+                                 for k, b in s.dense.items()]
+        at_install.append({
+            "epoch": epoch, "launches": apply_ops.launches,
+            "by_site": dict(apply_ops.launches_by_site), "layout": layout,
+            "peak": torch.cuda.max_memory_allocated(dev)})
+
+    rt.membership.add_listener(note_install)
+    out = {"reads": [], "violations": [], "joined": None, "error": None}
+    with path_run(dev) as run:
+        t = time.perf_counter()
+        rt.start(fn, ELASTIC_CLOCKS, timeout=600)
+        t_prof = time.perf_counter()
+        before = apply_ops.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            gw = ReadGateway(rt, n_replicas=1, transport="shm")
+            try:
+                stop = threading.Event()
+                reader = threading.Thread(target=_serve_reads,
+                                          args=(rt, gw, out, stop),
+                                          name="smoke-reader", daemon=True)
+                reader.start()
+                stats = rt.wait()
+                t_wait = time.perf_counter()
+                stop.set()
+                reader.join(timeout=120)
+                if reader.is_alive() or out["error"] is not None:
+                    raise AssertionError(f"elastic: reader failed: "
+                                         f"{out['error']!r}")
+                rset = gw.replicas
+                deadline = time.monotonic() + CATCH_UP_S
+                while any(rset.staleness(r.vc, rset.master_vc())
+                          for r in rset.replicas):
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"elastic: replica not caught "
+                                             f"up in {CATCH_UP_S} s")
+                    time.sleep(0.01)
+                torch.cuda.synchronize()
+                end = time.perf_counter()
+                masters = _check_lda_master(rt, corpus, "elastic")
+                rep = rset.replicas[0]
+                for key, want in masters.items():
+                    buf = rep.values[key]
+                    got, _ = rep.serve(key)
+                    if not (buf.is_cuda and buf.dtype == torch.float64) or \
+                            got.reshape(want.shape).tobytes() \
+                            != want.tobytes():
+                        raise AssertionError(f"elastic: the replica's {key} "
+                                             f"is not bitwise the master")
+                replica = {"deltas": rep.deltas_applied,
+                           "bytes_ingested": rep.bytes_ingested,
+                           "ingest_calls": rep.ingest_applies,
+                           "stale_row_drops": rep.stale_row_drops,
+                           "reads": rep.reads, "errors": list(rset.errors),
+                           "violations": list(rset.violations),
+                           "pub_drops": rset.pub_drops,
+                           "pub_resyncs": rset.pub_resyncs}
+            finally:
+                gw.close()
+    walls = {"run": t_wait - t, "start": t_prof - t,
+             "catch_up": end - t_wait, "start_to_caught_up": end - t}
+    prof_s = end - t_prof
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches, by_site = run["launches"], run["ps_apply_by_site"]
+    if stats.violations or out["violations"] or replica["errors"] \
+            or replica["violations"]:
+        raise AssertionError(
+            f"elastic: violations {stats.violations[:3]} "
+            f"{out['violations'][:3]} {replica['violations'][:3]}, errors "
+            f"{replica['errors'][:3]}")
+    results = [r for _, r in plan.results]
+    if results != ["ok", "ok"] or rt.partition.active != (1, 2) \
+            or [e for e, _ in rt.membership.log] != [1, 2]:
+        raise AssertionError(f"elastic: plan {results}, active "
+                             f"{rt.partition.active}, log "
+                             f"{rt.membership.log}")
+    applied = sum(int(s.applied_parts.sum()) for s in rt.shards)
+    sent = int(rt._parts_sent.sum())
+    if applied != sent:
+        raise AssertionError(f"elastic: parts sent {sent} != applied "
+                             f"{applied}")
+    for s in rt.shards:
+        for key, block in s.dense.items():
+            n = rt.partition.rows_of(key, s.sid).size
+            if not (block.is_cuda and block.dtype == torch.float64
+                    and tuple(block.shape) == (n, rt._x0[key].shape[1])):
+                raise AssertionError(f"elastic: slot {s.sid}'s {key} is "
+                                     f"{block.dtype} {tuple(block.shape)} on "
+                                     f"{block.device}, owning {n} rows")
+    if any(b.shape[0] for b in rt.shards[0].dense.values()):
+        raise AssertionError("elastic: the retired slot 0 kept rows")
+    for note in at_install:
+        for sid, blocks in note["layout"].items():
+            if not all(d.startswith("cuda") and dt == "torch.float64"
+                       and shape[0] == n for d, dt, shape, n in blocks):
+                raise AssertionError(f"elastic: at epoch {note['epoch']}'s "
+                                     f"install slot {sid} held {blocks}")
+    ingest = by_site.get(INGEST_SITE, 0)
+    replay = by_site.get(REPLAY_SITE, 0)
+    first = at_install[0]
+    shards_after = ((launches["ps_apply"] - ingest)
+                    - (first["launches"] - first["by_site"].get(
+                        INGEST_SITE, 0)))
+    if shards_after <= 0 or ingest <= 0 or launches["topk_mag"] != 0:
+        raise AssertionError(f"elastic: ps_apply {launches['ps_apply']} "
+                             f"launches, {ingest} by replica ingest, "
+                             f"{shards_after} by the shards after the first "
+                             f"install; topk_mag {launches['topk_mag']}")
+    in_window = launches["ps_apply"] - before
+    in_profile = sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and PS_APPLY_KERNEL.match(_short(e.name)))
+    if in_profile != in_window:
+        raise AssertionError(f"elastic: {in_profile} ps_apply kernels in "
+                             f"the profile, {in_window} launched in its "
+                             f"window")
+    device_s = device_seconds(prof)
+    busy_s = sum(device_s.values())
+    migration_s = {k: v for k, v in device_s.items()
+                   if MIGRATION_KERNEL.search(k)}
+    ct = [0.0] + list(stats.clock_times)
+    ops = [{**op, "active": list(op["active"])} for op in rt.membership.ops]
+    log = [[e, list(a)] for e, a in rt.membership.log]
+    migration_ms = _migration_ms(dev, rt)
+    del rt
+
+    # the autoscaler run: one slot of two active, a policy that splits at
+    # its first poll (one active shard's imbalance is 1.0) and keeps 2
+    arun, afn = _wire_runtime(dev, corpus, policies.ssp(1), "shm",
+                              n_shards=1, zero_copy=True, max_shards=2)
+    afn = _gate_last_clock(arun, afn, 1, AUTOSCALE_CLOCKS)
+    with path_run(dev) as arun_run:
+        t = time.perf_counter()
+        arun.start(afn, AUTOSCALE_CLOCKS, timeout=600)
+        asc = Autoscaler(arun, policy=AutoscalePolicy(
+            split_imbalance=1.0, split_min_rows_s=0.0, min_shards=2)).start()
+        try:
+            astats = arun.wait()
+        finally:
+            asc.stop()
+        auto_wall = time.perf_counter() - t
+    actions = [vars(a) for a in asc.actions]
+    bad = [a for a in asc.actions if not a.ok and not (
+        "running runtime" in (a.error or ""))]
+    if astats.violations or bad or asc.summary().get("add_shard", 0) < 1:
+        raise AssertionError(f"elastic autoscaler: violations "
+                             f"{astats.violations[:3]}, actions {actions}")
+    a_applied = sum(int(s.applied_parts.sum()) for s in arun.shards)
+    if a_applied != int(arun._parts_sent.sum()):
+        raise AssertionError(f"elastic autoscaler: parts sent "
+                             f"{int(arun._parts_sent.sum())} != applied "
+                             f"{a_applied}")
+    _check_lda_master(arun, corpus, "elastic autoscaler")
+    auto = {"clocks": AUTOSCALE_CLOCKS, "slots": arun.n_slots,
+            "active": list(arun.partition.active), "wall_s": auto_wall,
+            "actions": actions, "ops": [{**op, "active": list(op["active"])}
+                                        for op in arun.membership.ops],
+            "launches": arun_run["launches"],
+            "ps_apply_by_site": arun_run["ps_apply_by_site"],
+            "violations": 0, "master_exact": True}
+    del arun
+
+    emit({"phase": "elastic", "transport": "shm", "zero_copy": True,
+          "vocab": VOCAB, "n_topics": N_TOPICS, "workers": N_WORKERS,
+          "client_processes": N_WORKERS, "shards": N_SHARDS,
+          "max_shards": ELASTIC_SLOTS, "plan": ELASTIC_PLAN,
+          "policy": "ssp(1)", "clocks": ELASTIC_CLOCKS, "reduced": REDUCED,
+          "plan_results": results, "log": log,
+          "ops": ops,
+          "migration_device_ms_retimed": migration_ms,
+          "migration_device_s_by_name": migration_s,
+          "wall_s": walls,
+          "clock_s": [b - a for a, b in zip(ct, ct[1:])],
+          "wire_phase_wall_s": wire_wall_s,
+          "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / prof_s,
+          "device_s_by_name": dict(sorted(device_s.items(),
+                                          key=lambda kv: -kv[1])[:8]),
+          "h2d_s": sum(v for k, v in device_s.items() if "HtoD" in k),
+          "d2h_s": sum(v for k, v in device_s.items() if "DtoH" in k),
+          "peak_device_bytes": peak,
+          "at_install": at_install,
+          "launches": launches,
+          "ps_apply_launches": {"total": launches["ps_apply"],
+                                "shards": launches["ps_apply"] - ingest,
+                                "epoch_replay": replay,
+                                "replica_ingest": ingest,
+                                "shards_after_first_install": shards_after},
+          "ps_apply_kernels_in_profile": in_profile,
+          "ps_apply_launched_in_profile": in_window,
+          "ps_apply_device_s": ps_apply_seconds(device_s, in_window),
+          "reads": _read_summary(out["reads"]), "replica": replica,
+          "parts_sent": sent, "parts_applied": applied,
+          "autoscaler": auto, "violations": 0, "master_exact": True,
+          "replica_bitwise_master": True})
+    return launches, {"total": launches["ps_apply"],
+                      "shards": launches["ps_apply"] - ingest,
+                      "epoch_replay": replay, "replica_ingest": ingest}, \
+        auto["launches"]
+
+
 # on this corpus and seed max|δ| over the replicas is 21 after step 0 and 38
 # after step 1 (counts, so the same on every run): step 1 syncs by value
 SPMD_VALUE_BOUND = 25.0
@@ -2211,6 +2554,8 @@ def main() -> None:
                                                           wire_wall_s)
     (replica_launches, replica_calls, tcp_launches,
      ingest_launches) = run_replicas_phase(dev, corpus, wire_wall_s)
+    (elastic_launches, elastic_by_site,
+     autoscale_launches) = run_elastic_phase(dev, corpus, wire_wall_s)
     spmd_launches, vap_shapes = run_lda_spmd_phase(dev, corpus)
     launches.update(spmd_launches)
     app_launches, app_calls = run_apps_phase(dev)
@@ -2311,6 +2656,8 @@ def main() -> None:
                       "durable_launches": durable_launches[name],
                       "replicas_launches": replica_launches[name],
                       "replicas_tcp_launches": tcp_launches[name],
+                      "elastic_launches": elastic_launches[name],
+                      "elastic_autoscale_launches": autoscale_launches[name],
                       "replay_launches": {
                           k: v[name] for k, v in replay_launches.items()},
                       **{k: main_case[k] for k in keys}})
@@ -2321,6 +2668,9 @@ def main() -> None:
                   if c.get("site") == "replica ingest")
     table[0]["replica_ingest"] = {"launches": ingest_launches,
                                   **{k: ingest[k] for k in keys}}
+    # the elastic phase's main run, split by call site: the shards' applies
+    # (the held next-epoch replay among them) and the replica's ingest
+    table[0]["elastic_launches_by_site"] = elastic_by_site
     # rglru_scan's entries: the fused one per dtype at the serve path's
     # calls, the bare recurrence at the serve shape (off the path); launches:
     # each entry's own count over RecurrentGemma-9B's prefill

@@ -9,16 +9,25 @@ blocks are float64 tensors on the runtime's device, applied by the
 ``ps_apply`` kernel.  Around it: unified metrics (:mod:`.metrics`),
 sampled tracing (:mod:`.trace`), a per-shard write-ahead log (:mod:`.wal`),
 snapshots with exact-clock recovery replayed on the card
-(:mod:`.snapshot`), and the serving tier (:mod:`.serving`): read replicas
-with their buffers on the device behind an SLO-routed read gateway.
+(:mod:`.snapshot`), the serving tier (:mod:`.serving`): read replicas
+with their buffers on the device behind an SLO-routed read gateway, and
+elastic shard membership (:mod:`.membership`: shards added and removed
+mid-run, the rows migrated on the device) driven by hand, by a scripted
+plan, or by the autoscaler (:mod:`.autoscale`).
 """
 import logging as _logging
 
+from repro_torch.runtime.autoscale import (AutoscaleAction, AutoscalePolicy,
+                                           Autoscaler)
 from repro_torch.runtime.config import TRANSPORTS, RuntimeConfig
-from repro_torch.runtime.membership import INF_CLOCK, Partition
+from repro_torch.runtime.membership import (INF_CLOCK, MembershipEvent,
+                                            MembershipManager, MembershipPlan,
+                                            Partition)
 from repro_torch.runtime.messages import (AckBatchMsg, Channel, ClockMarker,
-                                          ClockMsg, DeliverMsg,
-                                          FullyDelivered, ProcDoneMsg,
+                                          ClockMsg, DeliverMsg, EpochAckMsg,
+                                          EpochBeginMsg, EpochMsg,
+                                          FullyDelivered, InstallMsg,
+                                          ProcDoneMsg,
                                           ReplicaDeltaMsg, ReplicaFinMsg,
                                           ReplicaStateMsg, ReplicaVcMsg,
                                           ShardFinMsg, SubscribeMsg,
@@ -47,9 +56,12 @@ from repro_torch.runtime.wal import (WalWriter, prune_segments, read_segment,
                                      wal_segments)
 
 __all__ = [
-    "AckBatchMsg", "Channel", "ClientProcess", "ClockMarker", "ClockMsg",
-    "DeliverMsg", "FRESH", "FifoAssert", "FrameDecoder", "FullyDelivered",
-    "GatewayMetrics", "INF_CLOCK", "MembershipMetrics", "MetricsHub",
+    "AckBatchMsg", "AutoscaleAction", "AutoscalePolicy", "Autoscaler",
+    "Channel", "ClientProcess", "ClockMarker", "ClockMsg",
+    "DeliverMsg", "EpochAckMsg", "EpochBeginMsg", "EpochMsg", "FRESH",
+    "FifoAssert", "FrameDecoder", "FullyDelivered",
+    "GatewayMetrics", "INF_CLOCK", "InstallMsg", "MembershipEvent",
+    "MembershipManager", "MembershipMetrics", "MembershipPlan", "MetricsHub",
     "PSRuntime", "Partition", "ProcDoneMsg", "ProcessMetrics",
     "ReadGateway", "ReadResult", "ReadShedError", "ReplicaDeltaMsg",
     "ReplicaFinMsg", "ReplicaMetrics", "ReplicaSet", "ReplicaStateMsg",

@@ -10,9 +10,7 @@ The single construction surface of :class:`~repro_torch.runtime.PSRuntime`:
 
 The fields mirror the JAX package's ``RuntimeConfig`` so call sites carry
 over, and so do its validations: a config is either valid or never
-constructed.  The tier this port does not have yet (elastic membership)
-keeps its fields, and setting one raises :class:`NotImplementedError`
-naming the ROADMAP item that ports it, instead of being silently ignored.
+constructed.
 """
 from __future__ import annotations
 
@@ -25,12 +23,6 @@ from repro_torch.runtime.trace import normalize_trace
 from repro_torch.runtime.wal import FSYNC_POLICIES as WAL_FSYNC
 
 TRANSPORTS: Tuple[str, ...] = ("queue", "tcp", "shm", "proc")
-
-# field -> (value the port runs with, ROADMAP item that ports the rest)
-_NOT_PORTED = {
-    "max_shards": (None, "Queue 1 item 5.4: elastic membership"),
-    "membership_plan": (None, "Queue 1 item 5.4: elastic membership"),
-}
 
 
 @dataclass
@@ -49,6 +41,12 @@ class RuntimeConfig:
     flushes in host numpy.  ``zero_copy`` (None or True: on) picks the shm
     transport's raw row-block wire with in-ring views over pickle-5 frames;
     the other transports ignore it.
+    Elastic membership (:mod:`repro_torch.runtime.membership`):
+    ``max_shards`` provisions that many shard slots (threads, channels and
+    wires for every transport) with ``n_shards`` of them active in epoch 0,
+    so ``rt.add_shard()`` / ``rt.remove_shard()`` can re-partition live;
+    ``membership_plan`` (a ``MembershipPlan``) scripts such ops at clock
+    boundaries.
     The reference's ``ps_kernels`` flag is not carried over, because on the
     port the device decides: on CUDA the kernels always run, on the CPU
     their plain PyTorch versions do.  Asking for CUDA on a host without a
@@ -98,6 +96,8 @@ class RuntimeConfig:
             raise ValueError("n_workers must divide into processes evenly")
         if self.n_shards < 1:
             raise ValueError("need at least one server shard")
+        if self.max_shards is not None and self.max_shards < self.n_shards:
+            raise ValueError("max_shards must be >= n_shards")
         if self.barrier_reads and self.threads_per_process != 1:
             raise ValueError("barrier_reads requires threads_per_process == 1")
         if self.transport not in TRANSPORTS:
@@ -125,9 +125,3 @@ class RuntimeConfig:
                              "it requires snapshot_dir")
         # a bad trace spec fails at construction, not at the first event
         normalize_trace(self.trace)
-        for name, (ported, item) in _NOT_PORTED.items():
-            value = getattr(self, name)
-            if value != ported and value not in (None, False):
-                raise NotImplementedError(
-                    f"RuntimeConfig({name}={value!r}) is not ported to "
-                    f"repro_torch yet (ROADMAP {item})")

@@ -18,6 +18,13 @@ Message flow (client process p, server shard s):
                          every peer acked an update part — the origin
                          worker's unsynchronized accumulator may shrink
 
+Elastic membership (the epoch protocol, :mod:`repro_torch.runtime.membership`):
+
+    s -> p : EpochMsg      announce of the next epoch's active slots
+    p -> s : EpochAckMsg   the client's barrier, FIFO-after its last
+                           old-epoch Update/Clock on this channel
+    manager -> s : EpochBeginMsg, InstallMsg  (in-process only)
+
 Multi-process quiesce (forked clients over a wire transport):
 
     p -> s : ProcDoneMsg  process p finished all its clocks
@@ -38,9 +45,12 @@ publish stream carries.
 
 Messages carry host numpy arrays: the shard copies a part's rows and delta
 to the device only to apply them to its master block, and a replica copies
-a published delta to the device only to land it in its own buffers.  Every
-message pickles, so the serving messages ride the shm and tcp wires as
-pickle-5 frames (:func:`repro_torch.runtime.transport.encode_frame`).
+a published delta to the device only to land it in its own buffers.  The
+one exception never leaves this process: an :class:`InstallMsg` carries a
+slot's re-partitioned master blocks as tensors on the runtime's device.
+Every message that crosses a wire pickles, so the serving and epoch
+messages ride the shm and tcp wires as pickle-5 frames
+(:func:`repro_torch.runtime.transport.encode_frame`).
 """
 from __future__ import annotations
 
@@ -129,13 +139,59 @@ class FullyDelivered:
 
 
 @dataclass
+class EpochMsg:
+    """Membership announce, manager -> every client (rides a designated
+    active shard's FIFO channel; ``shard`` names it for the FIFO assert).
+    The client swaps its key->shard router to ``(epoch, active)`` atomically
+    w.r.t. its own sends, then acks on every involved channel."""
+    epoch: int
+    active: tuple            # active slot ids of the new epoch
+    shard: int               # channel owner (the announce rides its FIFO)
+    seq: int = -1
+
+
+@dataclass
+class EpochAckMsg:
+    """Client -> shard epoch barrier: FIFO-after the client's last
+    old-epoch Update/Clock on this channel.  A shard holding acks from
+    every process will never see another old-epoch update."""
+    process: int
+    epoch: int
+    seq: int = -1
+
+
+@dataclass
+class EpochBeginMsg:
+    """Manager -> shard (in-process only, never pickled): the pending
+    epoch's partition.  Enqueued before the client announce, so it always
+    precedes the first ack in the shard's inbox."""
+    epoch: int
+    part: object             # membership.Partition
+    seq: int = -1
+
+
+@dataclass
+class InstallMsg:
+    """Manager -> shard (in-process only): adopt the new partition.
+    ``blocks`` is the slot's re-partitioned dense state, ``{key: (n, C)
+    float64 tensor on the runtime's device}``, or None for a retiring slot;
+    ``seed_vc`` is the conservative applied-vc seed (host int64, the
+    element-wise min over the handoff contributors)."""
+    epoch: int
+    part: object             # membership.Partition
+    blocks: object           # Optional[Dict[str, torch.Tensor]]
+    seed_vc: np.ndarray
+    seq: int = -1
+
+
+@dataclass
 class ProcDoneMsg:
     """Client process finished all its clocks: no more Update/Clock msgs
     (acks for in-flight deliveries may still follow).  Multi-process quiesce,
     leg 1: every shard counts these."""
     process: int
-    epoch: int = 0           # client's membership epoch at send
-    seq: int = -1
+    epoch: int = 0           # client's membership epoch at send (not held:
+    seq: int = -1            # a pending install defers the fin instead)
 
 
 @dataclass

@@ -10,8 +10,8 @@ load counters (parts, rows and bytes applied, the dense-lock wait), the
 per-process load counters, the snapshot counters, the write-ahead log's
 counters and the serving tier's (every registered replica set's replicas
 and every gateway's read counters, the shards' publish backpressure) into
-one tree.  ``MembershipMetrics`` reports the static epoch-0 partition until
-elastic membership is ported (ROADMAP Queue 1 item 5.4).
+one tree, with the membership epoch, its active slots and the number of
+completed membership ops (``MembershipMetrics``), and each slot's epoch.
 
 Collection discipline (the "low-overhead" contract):
 
@@ -384,13 +384,11 @@ class MetricsHub:
             for pid, entry in list(s.proc_load.items()):
                 if pid not in loads or entry[0] > loads[pid][0]:
                     loads[pid] = entry
-        # the static epoch-0 partition: no membership op runs until elastic
-        # membership is ported (ROADMAP Queue 1 item 5.4)
         membership = MembershipMetrics(
             epoch=rt.partition.epoch,
             active=tuple(rt.partition.active),
             n_slots=rt.n_slots,
-            n_ops=0)
+            n_ops=len(rt.membership.log))     # one log entry per completed op
         with rt._snap_lock:
             snaps = SnapshotMetrics(
                 n_snapshots=len(rt.snapshots),

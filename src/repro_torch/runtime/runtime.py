@@ -8,9 +8,9 @@ bounded-asynchronous semantics in a deterministic event loop, this module
     (read-my-writes: a worker's Incs are visible to its own process
     immediately);
   * **server shards** (one thread each) own hash-partitioned rows of the
-    master state — row ``r`` of a key lives on shard ``r % n_shards`` — as
-    dense float64 tensors on the runtime's device, landed by the
-    ``ps_apply`` kernel;
+    master state — row ``r`` of a key lives on the active shard
+    ``active[r % A]`` of the current membership epoch — as dense float64
+    tensors on the runtime's device, landed by the ``ps_apply`` kernel;
   * all edges are **FIFO per-channel queues** with sequence numbers the
     receivers assert in check mode;
   * the **Consistency Controller** (:mod:`repro_torch.core.controller`,
@@ -49,7 +49,23 @@ re-initialize it).  The child's worker flow is host numpy only: it orders
 each flush with ``np.argsort(-mags, kind="stable")``, the reference's own
 child order, which is the ``topk_mag`` kernel's contract (its plain version
 is held equal to it in the tests).  So on the wire transports ``topk_mag``
-launches no time by design; on ``"queue"`` it orders every flush.
+launches no time by design; on ``"queue"`` it orders every flush.  The
+child enforces it: its first act is to make CUDA's lazy initialization
+raise (:func:`_forbid_cuda`), so a child that touches the device fails the
+run with that error, whether or not this process had initialized CUDA
+before the fork.
+
+**Elastic shard membership** (:mod:`repro_torch.runtime.membership`):
+``n_slots`` shard slots (``max_shards``, default ``n_shards``) are
+provisioned up front — threads and channels under every transport, so
+forked clients inherit the wires — with ``n_shards`` active in epoch 0;
+``add_shard()`` / ``remove_shard()`` (or a scripted ``MembershipPlan``)
+re-partition **live**: an epoch barrier rides the existing FIFO channels,
+the rows migrate on the device (a clone of each old block, a reassembled
+master, the new blocks gathered from it), held next-epoch updates replay
+through ``ps_apply``, and the clock and value bounds hold for accesses
+issued *during* the migration, with a per-process zero-lost /
+zero-duplicated update counter audit at the final checks.
 
 Multi-process quiesce replaces the in-flight counter: clients send
 ``ProcDone`` after their last clock, shards answer ``ShardFin`` once their
@@ -108,7 +124,7 @@ import queue
 import sys
 import threading
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,9 +137,11 @@ from repro_torch.kernels.topk_mag import ops as topk_ops
 from repro_torch.runtime import trace as trace_mod
 from repro_torch.runtime import transport as T
 from repro_torch.runtime.config import RuntimeConfig
-from repro_torch.runtime.membership import Partition
+from repro_torch.runtime.membership import (INF_CLOCK, MembershipManager,
+                                            Partition)
 from repro_torch.runtime.messages import (SHUTDOWN, AckBatchMsg, Channel,
                                           ClockMarker, ClockMsg, DeliverMsg,
+                                          EpochAckMsg, EpochMsg,
                                           FullyDelivered, ProcDoneMsg,
                                           ShardFinMsg, UpdateMsg,
                                           group_by_channel, pump_inbox)
@@ -186,9 +204,23 @@ class ClientProcess:
             for w in self.workers}
         self.thread_clock: Dict[int, int] = {w: 0 for w in self.workers}
         self.sent_clock = 0                   # completed periods announced
+        # elastic membership: this process's routing epoch.  route_lock
+        # excludes worker flushes during the barrier swap, making the
+        # EpochAck that follows FIFO-after every old-epoch frame.
         self.part: Partition = rt.partition
-        # marks[p, s]: highest period of process p fully forwarded by shard s
-        self.marks = np.full((rt.n_proc, rt.n_shards), -1, dtype=np.int64)
+        self.route_lock = threading.Lock()
+        self._pending_epoch: Optional[EpochMsg] = None
+        # marks[p, s]: highest period of process p fully forwarded by shard
+        # slot s.  Inactive slots sit at INF (they constrain nothing); a
+        # slot (re)activated at epoch e resets to -1 until its seeded
+        # markers land; a retiring slot is lifted to INF by the marker it
+        # sends FIFO-behind its last delivery.
+        self.marks = np.full((rt.n_proc, rt.n_slots), INF_CLOCK,
+                             dtype=np.int64)
+        self.marks[:, list(self.part.active)] = -1
+        # epoch at which each slot was last activated: stale markers from a
+        # slot's previous activation are filtered by this
+        self.act_epoch = np.zeros(rt.n_slots, dtype=np.int64)
         self.staged: List[DeliverMsg] = []    # barrier_reads holding pen
         # load counters (repro_torch.runtime.metrics): bumped under locks the
         # hot paths already hold, snapshotted at clock boundaries and
@@ -239,6 +271,12 @@ class ClientProcess:
         # other (the shard may be blocked writing into our ring, waiting
         # for exactly this release to free its own inbound ring).
         T.release_msgs(batch)
+        # the epoch swap runs outside self.cond (it takes route_lock, and
+        # cond must never be held while waiting on it) but still on the
+        # comm thread, so it can never deadlock against a gated worker
+        pend, self._pending_epoch = self._pending_epoch, None
+        if pend is not None:
+            self._adopt_epoch(pend)
         # acks leave after the lock is dropped, coalesced into ONE AckBatch
         # message per (client, shard, flush)
         acks, self._acks = self._acks, []
@@ -271,9 +309,14 @@ class ClientProcess:
                         (rt._chan_ps[self.pid][msg.shard], msg.uid))
         elif isinstance(msg, ClockMarker):
             # max(): the frontier may never regress (channel FIFO already
-            # orders markers per (proc, shard); this makes it local)
-            self.marks[msg.process, msg.shard] = max(
-                self.marks[msg.process, msg.shard], msg.clock)
+            # orders markers per (proc, shard); this makes it local).  A
+            # marker stamped before the slot's latest activation is stale —
+            # it predates the re-partition and must not lift the reset mark.
+            if msg.epoch >= self.act_epoch[msg.shard]:
+                self.marks[msg.process, msg.shard] = max(
+                    self.marks[msg.process, msg.shard], msg.clock)
+        elif isinstance(msg, EpochMsg):
+            self._pending_epoch = msg         # adopted after this batch
         elif isinstance(msg, FullyDelivered):
             # exact subtraction, mirroring the simulator's VAP accounting:
             # the accumulator received exactly msg.delta when the update
@@ -309,6 +352,33 @@ class ClientProcess:
                 keep.append(msg)
         self.staged = keep
         return _ack_batches(acks, self.pid)
+
+    # ------------------------------------------------------------ membership
+    def _adopt_epoch(self, msg: EpochMsg) -> None:
+        """Swap the key->shard router at the epoch barrier.
+
+        Runs on the comm thread, outside ``self.cond``.  ``route_lock``
+        excludes in-flight worker flushes, so after the swap no old-epoch
+        frame can be emitted — which makes the EpochAckMsg sent below a
+        true barrier on every channel (FIFO-after the last old-epoch
+        Update/Clock).  New-epoch frames may precede the ack; receivers
+        hold them by their epoch stamp, not by ack order.
+        """
+        rt = self.rt
+        with self.route_lock:
+            old = self.part
+            if msg.epoch <= old.epoch:
+                return                        # duplicate announce
+            new_part = Partition(msg.epoch, msg.active, rt._row_counts)
+            with self.cond:
+                for sid in new_part.active:
+                    if not old.owns(sid):     # (re)activated slot: it now
+                        self.marks[:, sid] = -1   # constrains the frontier
+                        self.act_epoch[sid] = msg.epoch
+            self.part = new_part
+        for sid in sorted(set(old.active) | set(new_part.active)):
+            rt._send(rt._chan_ps[self.pid][sid],
+                     EpochAckMsg(self.pid, msg.epoch))
 
 
 class RuntimeViewHandle:
@@ -391,34 +461,43 @@ class _WorkerFlowMixin:
 
     def _flush_outbox(self, w: int, clock: int, proc: ClientProcess,
                       outbox: List[Tuple[str, np.ndarray]]) -> None:
-        """Split each update by the process's partition and send, one batch
-        per shard channel, FIFO preserved."""
+        """Split each update by the process's *current* partition and
+        send, one batch per shard channel, FIFO preserved.
+
+        Routing is deferred from Inc time to flush time on purpose: an SSP
+        outbox filled under epoch e but flushed after the comm thread's
+        barrier swap must route by e+1, or the old owner would receive an
+        update after its EpochAck cut and lose it in the handoff.  The
+        route_lock critical section is pure split+enqueue — it never waits
+        on a consistency gate, so the swap can always get in promptly.
+        """
         if not outbox:
             return
         trc = self._trace if self.trace_on else None
         t0_ns = time.monotonic_ns() if trc is not None else 0
-        part = proc.part
         pairs: List[Tuple[Channel, UpdateMsg]] = []
-        for key, d2 in outbox:
-            for sid in part.active:
-                rows = part.rows_of(key, sid)
-                if rows.size == 0:
-                    continue
-                sub = d2[rows]
-                nz = np.any(sub != 0.0, axis=1)
-                if not nz.all():                 # elide all-zero rows
-                    rows, sub = rows[nz], sub[nz]
+        with proc.route_lock:
+            part = proc.part
+            for key, d2 in outbox:
+                for sid in part.active:
+                    rows = part.rows_of(key, sid)
                     if rows.size == 0:
                         continue
-                msg = UpdateMsg(self._next_uid(), w, proc.pid, clock,
-                                key, rows, sub, part.epoch)
-                pairs.append((self._chan_ps[proc.pid][sid], msg))
-                if trc is not None and trc.sampled(msg.uid):
-                    # lifeline start: joined to the shard's apply_part on
-                    # (proc, uid), which the wire already carries
-                    trc.point(trace_mod.EV_SEND, proc.pid, msg.uid, key)
-        for chan, msgs in group_by_channel(pairs):
-            self._send_many(chan, msgs)
+                    sub = d2[rows]
+                    nz = np.any(sub != 0.0, axis=1)
+                    if not nz.all():                 # elide all-zero rows
+                        rows, sub = rows[nz], sub[nz]
+                        if rows.size == 0:
+                            continue
+                    msg = UpdateMsg(self._next_uid(), w, proc.pid, clock,
+                                    key, rows, sub, part.epoch)
+                    pairs.append((self._chan_ps[proc.pid][sid], msg))
+                    if trc is not None and trc.sampled(msg.uid):
+                        # lifeline start: joined to the shard's apply_part
+                        # on (proc, uid), which the wire already carries
+                        trc.point(trace_mod.EV_SEND, proc.pid, msg.uid, key)
+            for chan, msgs in group_by_channel(pairs):
+                self._send_many(chan, msgs)
         if pairs:
             with self._slock:
                 self._parts_sent[proc.pid] += len(pairs)
@@ -561,12 +640,18 @@ class _WorkerFlowMixin:
             if self.trace_on:
                 for c in advanced:
                     self._trace.point(trace_mod.EV_CLOCK, proc.pid, c)
-            part = proc.part
-            pairs = [(self._chan_ps[proc.pid][sid],
-                      ClockMsg(proc.pid, c, part.epoch, load))
-                     for c in advanced for sid in part.active]
-            for chan, msgs in group_by_channel(pairs):
-                self._send_many(chan, msgs)
+            # ClockMsg routes by the current partition too; if the epoch
+            # swapped between the update flush above and here, the old
+            # owner's missing clock only *under*-states its applied vc
+            # (conservative), and the new owner holds the early clock by
+            # its epoch stamp until install
+            with proc.route_lock:
+                part = proc.part
+                pairs = [(self._chan_ps[proc.pid][sid],
+                          ClockMsg(proc.pid, c, part.epoch, load))
+                         for c in advanced for sid in part.active]
+                for chan, msgs in group_by_channel(pairs):
+                    self._send_many(chan, msgs)
         for chan, msg in staged_acks:
             self._send(chan, msg)
         if advanced:
@@ -606,7 +691,13 @@ class PSRuntime(_WorkerFlowMixin):
         self.P = cfg.n_workers
         self.tpp = cfg.threads_per_process
         self.n_proc = cfg.n_workers // cfg.threads_per_process
-        self.n_shards = cfg.n_shards
+        self.n_shards = cfg.n_shards          # initial active count
+        # elastic membership: n_slots shard slots are provisioned (threads +
+        # channels for every transport, so forked clients inherit the wires)
+        # but only n_shards are active in epoch 0; add_shard()/remove_shard()
+        # re-partition live (repro_torch.runtime.membership)
+        self.n_slots = (cfg.n_shards if cfg.max_shards is None
+                        else int(cfg.max_shards))
         self.policy = cfg.policy
         self.seed = cfg.seed
         self.prioritize = cfg.prioritize_by_magnitude
@@ -649,11 +740,6 @@ class PSRuntime(_WorkerFlowMixin):
         self._errors: List[BaseException] = []
         self._qcond = threading.Condition()   # guards _inflight
         self._inflight = 0
-        # serializes snapshots against each other (re-entrant: a periodic
-        # snapshot takes one while holding it).  Elastic membership's op
-        # lock takes its place (ROADMAP Queue 1 item 5.4); a shard thread
-        # never blocks on it.
-        self._op_lock = threading.RLock()
 
         # mid-run periodic snapshots: taken by the shard thread that moves
         # the applied frontier across a multiple of `snapshot_every` clocks
@@ -670,16 +756,19 @@ class PSRuntime(_WorkerFlowMixin):
         self.wal_dir = cfg.wal_dir
         self.wal_fsync = cfg.wal_fsync or "none"
         self.wal_segment_bytes = cfg.wal_segment_bytes
+        # per-slot log positions at each membership epoch cut
+        self._wal_epoch_marks: List[Tuple[int, dict]] = []
         if cfg.wal_dir:
             os.makedirs(cfg.wal_dir, exist_ok=True)
             self._wal_codec = T.RowCodec(list(self._x0.keys()))
         else:
             self._wal_codec = None
 
-        self.n_slots = cfg.n_shards
         self.shards = [ServerShard(self, s, x0_dev)
                        for s in range(self.n_slots)]
         del x0_dev                            # the shards hold their blocks
+        self.membership = MembershipManager(self)
+        self._membership_plan = cfg.membership_plan
         # serving-tier objects register here for rt.metrics()
         self._gateways: List[object] = []
         self._replica_sets: List[object] = []
@@ -699,13 +788,13 @@ class PSRuntime(_WorkerFlowMixin):
             self._final_caches: Dict[int, Dict[str, np.ndarray]] = {}
         else:
             self.procs = [ClientProcess(self, p) for p in range(self.n_proc)]
-            # FIFO channels: client process -> shard, and back
+            # FIFO channels: client process -> shard slot, and back
             self._chan_ps = [[Channel(f"p{p}->s{s}", self.shards[s].inbox)
-                              for s in range(self.n_shards)]
+                              for s in range(self.n_slots)]
                              for p in range(self.n_proc)]
             self._chan_sp = [[Channel(f"s{s}->p{p}", self.procs[p].inbox)
                               for p in range(self.n_proc)]
-                             for s in range(self.n_shards)]
+                             for s in range(self.n_slots)]
 
         self.update_fn: Callable = None
         self.n_clocks = 0
@@ -736,6 +825,17 @@ class PSRuntime(_WorkerFlowMixin):
         for s in self.shards:
             if s.wal is not None:
                 s.wal.seal(s.clock_vc)
+
+    def _wal_on_epoch(self, epoch: int, added, removed) -> None:
+        """Membership hook: record each epoch cut's per-slot log positions
+        (the kill-epoch bookmark point-in-time tooling starts from).  The
+        sealing itself happens shard-side in ``_maybe_cut`` — a retiring
+        slot seals its segment at the cut, stamped with its final vc."""
+        if not self.wal_dir:
+            return
+        marks = {s.sid: s.wal.marks() for s in self.shards
+                 if s.wal is not None}
+        self._wal_epoch_marks.append((epoch, marks))
 
     def _next_uid(self) -> int:
         return next(self._uid)
@@ -792,16 +892,19 @@ class PSRuntime(_WorkerFlowMixin):
         self._t0 = time.monotonic()
         if self._proc_mode:
             self._start_proc()
-            return
-        for s in self.shards:
-            s.thread.start()
-        for p in self.procs:
-            p.thread.start()
-        self._workers = [threading.Thread(target=self._worker_loop, args=(w,),
-                                          name=f"ps-worker-{w}", daemon=True)
-                         for w in range(self.P)]
-        for t in self._workers:
-            t.start()
+        else:
+            for s in self.shards:
+                s.thread.start()
+            for p in self.procs:
+                p.thread.start()
+            self._workers = [
+                threading.Thread(target=self._worker_loop, args=(w,),
+                                 name=f"ps-worker-{w}", daemon=True)
+                for w in range(self.P)]
+            for t in self._workers:
+                t.start()
+        if self._membership_plan is not None:
+            self.membership.start_plan(self._membership_plan)
 
     # ------------------------------------------------------- proc-mode start
     def _start_proc(self) -> None:
@@ -810,7 +913,7 @@ class PSRuntime(_WorkerFlowMixin):
         of this runtime is running while it forks."""
         ctx = multiprocessing.get_context("fork")
         if self.transport_kind == "tcp":
-            self._transport = T.TcpTransport(self.n_proc, self.n_shards)
+            self._transport = T.TcpTransport(self.n_proc, self.n_slots)
             self._transport.listen()
         else:
             # ring must hold the largest possible single row part (a whole
@@ -820,7 +923,7 @@ class PSRuntime(_WorkerFlowMixin):
                            for v in self._x0.values())
             cap = max(1 << 20, 8 * max_part)
             self._shm_max_frame = cap // 2
-            self._transport = T.ShmTransport(self.n_proc, self.n_shards,
+            self._transport = T.ShmTransport(self.n_proc, self.n_slots,
                                              capacity=cap)
         for pid in range(self.n_proc):
             recv, send = os.pipe()
@@ -833,8 +936,8 @@ class PSRuntime(_WorkerFlowMixin):
             self._pipes.append(recv)
 
         # parent side: route each client->shard stream into the shard inbox,
-        # hand each shard a write channel back to every client
-        self._chan_sp = [[None] * self.n_proc for _ in range(self.n_shards)]
+        # hand each shard slot a write channel back to every client
+        self._chan_sp = [[None] * self.n_proc for _ in range(self.n_slots)]
         trc = self._trace
         if self.transport_kind == "tcp":
             self._conns = self._transport.accept_all(self._deadline)
@@ -891,6 +994,9 @@ class PSRuntime(_WorkerFlowMixin):
                     self._record_error(RuntimeError(
                         f"worker {t.name} still alive at deadline"))
                     break
+        # a scripted membership op may still be installing: let it finish
+        # before draining (its messages are in-flight-counted like any other)
+        self.membership.finish_plan(self._deadline - time.monotonic())
         if not self._errors:
             with self._qcond:
                 while self._inflight > 0:
@@ -931,6 +1037,7 @@ class PSRuntime(_WorkerFlowMixin):
                     child.join(timeout=5.0)
                     self._record_error(RuntimeError(
                         f"client process {child.name} killed at deadline"))
+            self.membership.finish_plan(self._deadline - time.monotonic())
             for pid, child in enumerate(self._children):
                 if pid not in finals:
                     # exitcode read after the join above, so the diagnostic
@@ -1029,10 +1136,37 @@ class PSRuntime(_WorkerFlowMixin):
             return any(c.is_alive() for c in self._children)
         return any(t.is_alive() for t in self._workers)
 
+    # ------------------------------------------------------------ membership
+    @property
+    def n_active_shards(self) -> int:
+        """Shards active in the current membership epoch (``n_shards`` is
+        the epoch-0 count; slots are ``n_slots``)."""
+        return self.partition.A
+
+    @property
+    def _shard_rows(self) -> Dict[str, List[np.ndarray]]:
+        """Per-slot row ownership under the *current* partition."""
+        return {key: [self.partition.rows_of(key, s)
+                      for s in range(self.n_slots)]
+                for key in self._x0}
+
+    def add_shard(self, sid: Optional[int] = None,
+                  timeout: float = 30.0) -> int:
+        """Activate a dormant shard slot mid-run (live re-partition; see
+        :mod:`repro_torch.runtime.membership`).  Returns the activated
+        sid."""
+        return self.membership.add_shard(sid, timeout=timeout)
+
+    def remove_shard(self, sid: int, timeout: float = 30.0) -> None:
+        """Retire an active shard slot mid-run; its rows migrate to the
+        survivors on the device."""
+        self.membership.remove_shard(sid, timeout=timeout)
+
     def completed_clock(self) -> int:
         """Global applied-clock frontier: periods completed by every
         process and applied by every active shard (a cheap racy read,
-        monotone)."""
+        monotone — the membership-plan driver polls this for its
+        clock-boundary triggers)."""
         done = None
         for s in self.shards:
             vc = s.vc_if_active()
@@ -1104,9 +1238,10 @@ class PSRuntime(_WorkerFlowMixin):
         barrier (snapshot.py module doc)."""
         if not self.snapshot_every or self._finished:
             return
-        # never block a shard thread on the op lock: skip this boundary and
-        # let the next ClockMsg re-trigger
-        if not self._op_lock.acquire(blocking=False):
+        # never block a shard thread against an in-flight membership install
+        # (the manager waits for shard-side install confirms while holding
+        # op_lock): skip the boundary and let the next ClockMsg re-trigger
+        if not self.membership.op_lock.acquire(blocking=False):
             return
         try:
             # racy per-entry reads are fine: the frontier is monotone, so a
@@ -1128,7 +1263,7 @@ class PSRuntime(_WorkerFlowMixin):
                 if self.snapshot_keep_last:
                     self._prune_retained()
         finally:
-            self._op_lock.release()
+            self.membership.op_lock.release()
 
     def _prune_retained(self) -> None:
         """Retention (``snapshot_keep_last=k``): drop periodic snapshots
@@ -1178,11 +1313,14 @@ class PSRuntime(_WorkerFlowMixin):
         array in the key's original shape.
 
         Exact once the runtime is quiesced (after :meth:`wait`); mid-run it
-        is a live, per-shard-locked read of the master blocks.
+        is a live, per-shard-locked read of the master blocks.  Holds the
+        membership op lock so it never observes a half-installed partition
+        (a read racing a live re-partition waits out the short freeze).
         """
         out = np.zeros_like(self._x0[key])
-        for shard in self.shards:
-            shard.read_rows(key, out)
+        with self.membership.op_lock:
+            for shard in self.shards:
+                shard.read_rows(key, out)
         return out.reshape(self._shapes[key])
 
     def expected_value(self, key: str) -> np.ndarray:
@@ -1223,8 +1361,8 @@ class PSRuntime(_WorkerFlowMixin):
             if not np.allclose(master, expected[k], atol=1e-6):
                 self._violation(
                     f"eventual-consistency violation on {k} (shard tables)")
-        # zero-lost/zero-duplicated audit: every update part a client sent
-        # was applied by exactly one shard
+        # zero-lost/zero-duplicated audit across membership changes: every
+        # update part a client sent was applied by exactly one shard slot
         applied = np.zeros(self.n_proc, dtype=np.int64)
         for s in self.shards:
             applied += s.applied_parts
@@ -1266,6 +1404,7 @@ class _ClientHost(_WorkerFlowMixin):
         self._trace = (trace_mod.TraceHub(rt._trace_cfg, f"client-p{pid}")
                        if rt.trace_on else None)
         self.n_shards = rt.n_shards
+        self.n_slots = rt.n_slots
         self.n_proc = rt.n_proc
         self.tpp = rt.tpp
         self.update_fn = rt.update_fn
@@ -1274,7 +1413,7 @@ class _ClientHost(_WorkerFlowMixin):
         self._x0 = rt._x0
         self._shapes = rt._shapes
         self._row_counts = rt._row_counts
-        self.partition = rt.partition
+        self.partition = rt.partition         # epoch at fork time (0)
         self._t0 = time.monotonic()
 
         self.stats = RunStats()
@@ -1294,7 +1433,7 @@ class _ClientHost(_WorkerFlowMixin):
         trc = self._trace
         if rt.transport_kind == "tcp":
             self._conns = rt._transport.connect(pid)
-            for s in range(rt.n_shards):
+            for s in range(rt.n_slots):
                 conn = self._conns[s]
                 chans.append(T.WireChannel(f"p{pid}->s{s}", conn.write,
                                            trace=trc))
@@ -1305,7 +1444,7 @@ class _ClientHost(_WorkerFlowMixin):
             self._stop = threading.Event()
             codec = (T.RowCodec(list(self._x0.keys())) if rt.zero_copy
                      else None)
-            for s in range(rt.n_shards):
+            for s in range(rt.n_slots):
                 edge = rt._transport.edges[(pid, s)]
                 if codec is not None:
                     bell_w = edge.c2s_bell[1]
@@ -1380,7 +1519,7 @@ class _ClientHost(_WorkerFlowMixin):
 
     def _on_shard_fin(self, msg: ShardFinMsg) -> None:
         self._fins.add(msg.shard)
-        if len(self._fins) == self.n_shards:
+        if len(self._fins) == self.n_slots:
             self._all_fins.set()
 
     # ---------------------------------------------------------------- run
@@ -1405,8 +1544,10 @@ class _ClientHost(_WorkerFlowMixin):
             # for still-inbound deliveries continue from the comm thread).
             # A still-running (timed-out) worker forbids this promise — the
             # run is failing anyway; ship the error without the handshake.
+            with self.proc.route_lock:
+                ep = self.proc.part.epoch
             for chan in self._channels:
-                self._send(chan, ProcDoneMsg(self.pid, self.proc.part.epoch))
+                self._send(chan, ProcDoneMsg(self.pid, ep))
             # quiesce leg 2: every shard's fin = our inbound stream is done
             if not self._all_fins.wait(
                     timeout=max(0.1, self._deadline - time.monotonic())):
@@ -1429,10 +1570,25 @@ class _ClientHost(_WorkerFlowMixin):
         }
 
 
+def _forbid_cuda(pid: int) -> None:
+    """Make any use of CUDA in this forked client raise.  Every CUDA call
+    and every tensor made on a CUDA device first runs ``torch.cuda.
+    _lazy_init`` (the fork marks the device for re-initialization even when
+    the parent had initialized it), so replacing it refuses the device at
+    the first touch, with a message that names the cause."""
+    def refuse(*args, **kwargs):
+        raise RuntimeError(
+            f"forked client {pid} touched CUDA: the clients of a wire "
+            f"transport run on the host only (the shards and the device "
+            f"stay in the parent)")
+    torch.cuda._lazy_init = refuse
+
+
 def _client_child_main(rt: PSRuntime, pid: int, pipe: int) -> None:
     """Entry point of a forked client process; ships its final state to
     the parent through the pipe's write end ``pipe``."""
     try:
+        _forbid_cuda(pid)
         # comm/reader threads must grab the GIL promptly from the
         # compute-bound worker: the default 5 ms switch interval adds a
         # multi-ms stall to every inbound frontier/delivery hop

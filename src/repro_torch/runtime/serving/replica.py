@@ -56,12 +56,16 @@ runtime's latest **periodic snapshot** (``snapshot_every``), assembled by
 :func:`~repro_torch.runtime.snapshot.conservative_vc` seed, so it can serve
 honestly-stamped stale reads before the in-stream states arrive.
 
-Membership.  ``Replica.row_epoch`` and the epoch filter are here because
-the shards stamp every publish with their partition's epoch.  Re-wiring the
-subscriptions when an epoch installs (the reference's ``_on_epoch``
-listener) and the shard's re-bootstrap at install wait for elastic
-membership, ROADMAP Queue 1 item 5.4; until then the active slots are read
-under the runtime's ``_op_lock``.
+Membership.  The shards stamp every publish with their partition's epoch,
+and a shard whose partition changed pushes an in-stream re-bootstrap (its
+new partition, copied off the device, + vc) to every subscriber at
+install.  ``Replica.row_epoch`` records, per row, the epoch of the last
+state cut that covered it, so a late older-epoch delta for a migrated row
+(already folded into the cut) lands on the kernel's sentinel row instead
+of being counted twice.  After each completed op, :meth:`ReplicaSet.
+_on_epoch` (a membership listener) subscribes every replica to the newly
+active slots and unsubscribes it from the retired ones; a replica added
+mid-run reads the active slots under the membership op lock.
 
 Forks.  The wire transports fork the client processes at ``start()``, and
 the parent must start no thread before that; a replica set starts ingest
@@ -358,6 +362,10 @@ class ReplicaSet:
                      if ring_capacity else max(1 << 20, 4 * state_bytes))
         for _ in range(n_replicas):
             self.add_replica(bootstrap_from_snapshot=bootstrap_from_snapshot)
+        # elastic membership: after each completed epoch, subscribe every
+        # replica to newly activated slots (their in-stream bootstrap makes
+        # the migrated rows exact) and unsubscribe from retired ones
+        rt.membership.add_listener(self._on_epoch)
         rt._replica_sets.append(self)        # unified metrics registry
 
     # -------------------------------------------------------------- plumbing
@@ -394,9 +402,9 @@ class ReplicaSet:
         rep = Replica(self, rid, seed_snapshot=snap)
         rep.thread.start()
         self._subscribed[rid] = set()
-        # the active slots of the current partition (elastic membership
-        # will re-wire them at each epoch, ROADMAP Queue 1 item 5.4)
-        with self.rt._op_lock:
+        # subscribe to the *active* slots of the current epoch; membership
+        # changes later adjust via the _on_epoch listener
+        with self.rt.membership.op_lock:
             active = self.rt.partition.active
         for sid in active:
             self._subscribe(rep, sid)
@@ -442,6 +450,27 @@ class ReplicaSet:
         """Replicas currently in the serving rotation."""
         return sum(1 for r in self.replicas
                    if not (r.retired or r.poisoned))
+
+    def _on_epoch(self, epoch: int, part, added: List[int],
+                  removed: List[int]) -> None:
+        """Membership listener: re-wire every replica's subscriptions.
+
+        Newly activated slots bootstrap the replica in-stream (state + vc,
+        FIFO-before any delta); continuing slots already pushed their own
+        re-bootstrap at install, so only the added/removed edges change
+        here.  Channels are kept across retire/re-activate cycles so the
+        per-channel FIFO sequence stays continuous."""
+        if self._closed:
+            return
+        for rep in self.replicas:
+            if rep.retired:
+                continue
+            for sid in added:
+                self._subscribe(rep, sid)
+            for sid in removed:
+                if sid in self._subscribed.get(rep.rid, ()):
+                    self._subscribed[rep.rid].discard(sid)
+                    self.rt._send(self._ctrl[sid], UnsubscribeMsg(rep.rid))
 
     @property
     def ring_bytes(self) -> int:

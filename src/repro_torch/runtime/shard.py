@@ -30,17 +30,37 @@ updates queue FIFO per key and are released as acks free half-sync budget,
 mirroring ``server.py`` ``_try_start_delivery`` / ``_on_deliver``.  As in
 the simulator, a queued update is *not* counted against the clock frontier
 — the marker echo is immediate — so the two bounds compose identically in
-both implementations.
+both implementations.  The half-sync/pending accounting is key-global (not
+partition-local), so it survives membership change untouched.
+
+Elastic membership (:mod:`repro_torch.runtime.membership`): the shard is a
+*slot* — it may be inactive (owning no rows: ``(0, C)`` blocks on the
+device), active, retired, or re-activated as epochs change.  Between a
+pending epoch's announce and its install, any update or clock stamped with
+the next epoch is **held** FIFO (copied out of the ring first) and replayed
+through the normal apply/publish path at install — on the card through
+``ps_apply`` with the new partition's ``A``, its launches counted under
+:data:`REPLAY_SITE`.  A shard active in the old epoch *cuts* once every
+client process acked (channel FIFO then guarantees no more old-epoch
+updates), handing the manager ``(rows, values)`` per key — host row ids and
+a device clone of its block — plus its applied vector clock.  A retiring
+slot seals its write-ahead log segment at the cut and broadcasts
+``clock=INF`` markers — FIFO-behind everything it ever delivered — so it
+stops constraining the clock frontier exactly when its stream completes; a
+(re)activated slot broadcasts *seeded* markers from its post-replay vector
+clock so client frontiers unblock without waiting a period, and pushes an
+in-stream re-bootstrap to every subscribed replica.
 
 Multi-process quiesce: when the runtime runs with a wire transport, each
 client sends :class:`ProcDoneMsg` after its last clock; once every process
 is done and ``pending``/``queued``/ESSP-held deliveries have drained, the
 shard broadcasts :class:`ShardFinMsg` (FIFO-after everything else it will
 ever send), which is the client's signal that its inbound stream is
-complete.  On the shm transport with the zero-copy wire, an update part's
-``rows`` and ``delta`` are numpy views into the client's ring: the apply
-copies them to the device before the batch's frame pins are released, and
-anything retained past the batch is materialized first.
+complete; a pending install (held traffic still to replay) defers it.  On
+the shm transport with the zero-copy wire, an update part's ``rows`` and
+``delta`` are numpy views into the client's ring: the apply copies them to
+the device before the batch's frame pins are released, and anything
+retained past the batch is materialized first.
 
 Applied vector clock: ``clock_vc[p]`` is the highest period of process p
 whose updates this shard has applied — exact because ClockMsg is
@@ -68,16 +88,19 @@ Durability tier (:mod:`repro_torch.runtime.wal`): with
 ``RuntimeConfig(wal_dir=)`` the shard appends every applied update part to
 a per-slot write-ahead log — ``WalWriter.log_parts`` at the end of the
 apply's lock section (so the log marks stay consistent with the dense
-state), and ``commit`` (group commit + vc stamp) at the end of a batch in
+state), ``commit`` (group commit + vc stamp) at the end of a batch in
 which the applied vector clock moved, followed by the runtime's periodic
-snapshot check.  The frames are encoded from the host arrays before the
-batch's frame pins are released.  :meth:`durability_cut` copies the
+snapshot check, and ``seal`` at the epoch cut of a retiring slot.  The
+frames are encoded from the host arrays before the batch's frame pins are
+released.  :meth:`durability_cut` copies the
 masters to the host with the vc and the log marks under one lock.
 
 Exactly-once apply: :class:`UidDedup` records every applied part and drops
 exact duplicates by uid under the per-process clock frontier instead of
 double-applying.  The drop filter is armed from the start on WAL runs (log
-replay is at-least-once by design).
+replay is at-least-once by design) and arms permanently at the first
+membership op on WAL-off runs — cross-epoch resends are the only WAL-off
+source of duplicates.
 
 Tracing (:mod:`repro_torch.runtime.trace`): with ``rt.trace_on`` the shard
 records a ``shard_batch`` span per batch, an ``apply_part`` point per
@@ -111,9 +134,12 @@ import torch
 from repro_torch.core import controller
 from repro_torch.kernels.ps_apply import ops as apply_ops
 from repro_torch.runtime import trace as trace_mod
+from repro_torch.runtime.membership import INF_CLOCK
 from repro_torch.runtime.messages import (SHUTDOWN, AckBatchMsg, Channel,
                                           ClockMarker, ClockMsg, DeliverMsg,
-                                          FullyDelivered, ProcDoneMsg,
+                                          EpochAckMsg, EpochBeginMsg,
+                                          FullyDelivered, InstallMsg,
+                                          ProcDoneMsg,
                                           ReplicaDeltaMsg, ReplicaFinMsg,
                                           ReplicaStateMsg, ReplicaVcMsg,
                                           ShardFinMsg, SubscribeMsg,
@@ -125,6 +151,9 @@ from repro_torch.runtime.transport import (FifoAssert, materialize_msg,
 log = logging.getLogger("repro_torch.runtime.shard")
 
 _BATCH = 256        # max messages coalesced per apply/dispatch cycle
+# the name the held next-epoch replay's ps_apply launches count under
+# (ps_apply's launches_by_site)
+REPLAY_SITE = "epoch_replay"
 
 
 class UidDedup:
@@ -141,10 +170,11 @@ class UidDedup:
     to the in-flight window.
 
     The transports deliver exactly once, so a shard without a WAL only
-    records here; a WAL run arms the drop filter from the start (log replay
-    is at-least-once by design), and so will membership's cross-epoch
-    resends (ROADMAP Queue 1 item 5.4).  :func:`~repro_torch.runtime.
-    snapshot.recover_to_vc` runs one per slot over the replayed log.
+    records here until the first membership op; a WAL run arms the drop
+    filter from the start (log replay is at-least-once by design), and the
+    first ``EpochBeginMsg`` arms it for good (cross-epoch resends).
+    :func:`~repro_torch.runtime.snapshot.recover_to_vc` runs one per slot
+    over the replayed log.
     """
 
     def __init__(self, n_proc: int):
@@ -176,12 +206,13 @@ class ServerShard:
         self.rt = rt
         self.sid = sid
         self.inbox: queue.Queue = queue.Queue()
-        self.lock = threading.Lock()      # guards .dense/.clock_vc
-        self.part = rt.partition
+        self.lock = threading.Lock()      # guards .dense/.part/.clock_vc
+        self.part = rt.partition          # current membership epoch's map
         self.epoch = self.part.epoch
         # master state: one dense (n_owned_rows, C) float64 tensor per key on
         # the runtime's device, in partition order (global row r at local
-        # index r // part.A), gathered from the canonical x0 on that device
+        # index r // part.A), gathered from the canonical x0 on that device;
+        # a slot inactive in epoch 0 holds (0, C) blocks
         self.dense: Dict[str, torch.Tensor] = {
             key: v.index_select(0, torch.as_tensor(
                 self.part.rows_of(key, sid), device=v.device))
@@ -196,14 +227,20 @@ class ServerShard:
         self.queued: Dict[str, deque] = defaultdict(deque)
         self._fifo = FifoAssert()          # per origin process
         self._outbox: List[Tuple[Channel, object]] = []
+        # elastic membership: pending epoch between Begin and Install
+        self._pending_part = None          # next epoch's Partition
+        self._pending_acks: set = set()    # procs that crossed the barrier
+        self._cut_done = False
+        self._held: List[object] = []      # next-epoch msgs, FIFO per proc
         # zero-lost/zero-duplicated audit: update parts applied, per origin
         self.applied_parts = np.zeros(rt.n_proc, dtype=np.int64)
         # durability tier: per-slot write-ahead log (None unless the runtime
         # was built with wal_dir)
         self.wal = rt._make_wal(sid)
         # at-least-once dedup: the per-process frontier and uid tables are
-        # always kept current; the drop filter arms where duplicates can
-        # exist (WAL runs: log replay)
+        # always kept current, but the drop filter arms only where
+        # duplicates can exist — WAL runs (log replay) from the start,
+        # WAL-off runs permanently from the first membership op
         self._dedup = UidDedup(rt.n_proc)
         self._dedup_armed = self.wal is not None
         # applied per-process vector clock (guarded by .lock); _vc_dirty:
@@ -242,10 +279,13 @@ class ServerShard:
 
     def _handle_batch(self, batch: list) -> bool:
         """Coalesce runs of UpdateMsgs into one apply per key, dispatch
-        everything else in arrival order, flush sends per channel."""
+        everything else in arrival order, flush sends per channel.  Messages
+        stamped with a pending (not yet installed) epoch are held FIFO and
+        replayed at install."""
         rt = self.rt
         shutdown = False
         done = 0
+        held = 0
         t_batch = time.monotonic_ns() if rt.trace_on else 0
         run: List[UpdateMsg] = []
         for msg in batch:
@@ -263,6 +303,12 @@ class ServerShard:
                         if err:
                             rt._violation(f"FIFO violation: proc {sender}->"
                                           f"shard {self.sid} {err}")
+                if self._should_hold(msg):
+                    # held past this cycle (replayed at install): copy any
+                    # ring-backed arrays out before the frame pin drops
+                    self._held.append(materialize_msg(msg))
+                    held += 1
+                    continue
                 if isinstance(msg, UpdateMsg):
                     run.append(msg)
                 else:
@@ -281,19 +327,30 @@ class ServerShard:
         if rt.trace_on and done:
             rt._trace.span(trace_mod.EV_SHARD_BATCH, t_batch, self.sid, done)
         # zero-copy discipline: every view consumed by the applies above is
-        # done with, and everything retained (queued/pending/publish/outbox)
-        # was materialized — release the frame pins BEFORE the blocking outbox
-        # writes.  Blocking on a full s->c ring while still pinning the c->s
-        # ring would let two full rings deadlock each other (the client comm
-        # thread observes the mirror-image rule).
+        # done with, and everything retained (held/queued/pending/publish/
+        # outbox) was materialized — release the frame pins BEFORE the
+        # blocking outbox writes.  Blocking on a full s->c ring while still
+        # pinning the c->s ring would let two full rings deadlock each other
+        # (the client comm thread observes the mirror-image rule).
         release_msgs(batch)
         self._flush_outbox()
         # in-flight decrements must come *after* the sends this batch caused
         # were enqueued (incrementing the counter), else the quiesce wait can
-        # observe a transient 0 and shut down ahead of late deliveries
-        for _ in range(done):
+        # observe a transient 0 and shut down ahead of late deliveries.
+        # Held messages stay in flight until their replay.
+        for _ in range(done - held):
             rt._msg_done()
         return shutdown
+
+    def _should_hold(self, msg) -> bool:
+        """Next-epoch traffic raced ahead of this slot's install: park it.
+
+        Only updates and clocks need the epoch hold (they touch the dense
+        layout / the marker echo); ProcDone is epoch-independent — an
+        uninvolved slot's epoch never advances, and ``_maybe_fin`` defers
+        the fin past any pending install and replay."""
+        return (isinstance(msg, (UpdateMsg, ClockMsg))
+                and msg.epoch > self.part.epoch)
 
     # --------------------------------------------------------------- sends
     def _send(self, chan: Channel, msg) -> None:
@@ -344,6 +401,21 @@ class ServerShard:
                     self._send(rt._chan_sp[self.sid][q],
                                ClockMarker(msg.process, self.sid, msg.clock,
                                            self.epoch))
+        elif isinstance(msg, EpochBeginMsg):
+            self._pending_part = msg.part
+            self._pending_acks = set()
+            self._cut_done = False
+            # a membership op is in flight: cross-epoch at-least-once
+            # resends are now possible (and remain so — late retried wires
+            # can land after the install), so the duplicate filter arms
+            # permanently.  The uid tables have been recording since shard
+            # start, so parts applied before arming are covered too.
+            self._dedup_armed = True
+        elif isinstance(msg, EpochAckMsg):
+            self._pending_acks.add(msg.process)
+            self._maybe_cut()
+        elif isinstance(msg, InstallMsg):
+            self._install(msg)
         elif isinstance(msg, SubscribeMsg):
             self._on_subscribe(msg)
         elif isinstance(msg, UnsubscribeMsg):
@@ -359,20 +431,126 @@ class ServerShard:
     # ------------------------------------------------------- proc quiesce
     def _maybe_fin(self) -> None:
         """Broadcast ShardFin once every process is done and deliveries have
-        fully drained — nothing further will ever leave this shard."""
+        fully drained — nothing further will ever leave this shard.  A
+        pending membership install (held messages still to replay) defers
+        the fin."""
         rt = self.rt
         if (self._fin_sent or len(self._done_procs) < rt.n_proc
                 or self.pending or any(self.queued.values())
+                or self._pending_part is not None or self._held
                 or self._essp_hold):
             return
         self._fin_sent = True
         for q in range(rt.n_proc):
             self._send(rt._chan_sp[self.sid][q], ShardFinMsg(self.sid))
 
+    # ------------------------------------------------------ epoch protocol
+    def _maybe_cut(self) -> None:
+        """All clients crossed the barrier: hand off (membership module
+        docstring, step 3).  Channel FIFO guarantees no further old-epoch
+        update can arrive, so the cut is final for this epoch."""
+        rt = self.rt
+        if (self._pending_part is None or self._cut_done
+                or len(self._pending_acks) < rt.n_proc):
+            return
+        self._cut_done = True
+        if self.part.owns(self.sid):
+            rt.membership.inbox.put(
+                ("handoff", self.sid, (self.device_cut(), self.vc_snapshot())))
+        if not self._pending_part.owns(self.sid):
+            if self.wal is not None:
+                # the cut is final for this slot: no old-epoch update can
+                # arrive (channel FIFO behind the acks) and next-epoch
+                # updates route elsewhere — seal the segment at the epoch
+                # cut; a later re-activation opens the next one
+                self.wal.seal(self.vc_snapshot())
+            # retiring: everything this slot will ever deliver (bar strong-
+            # VAP-queued updates, which are exempt from the clock frontier
+            # exactly like in the simulator) is FIFO-before these markers,
+            # so clients may treat the slot as infinitely caught up.  ESSP
+            # holds count as "ever deliver": release them first.
+            self._flush_essp_hold()
+            for q in range(rt.n_proc):
+                for p in range(rt.n_proc):
+                    if p != q:
+                        self._send(rt._chan_sp[self.sid][q],
+                                   ClockMarker(p, self.sid, INF_CLOCK,
+                                               self.epoch))
+
+    def _install(self, msg: InstallMsg) -> None:
+        """Adopt the new epoch's partition and dense blocks (tensors on the
+        device, or ``(0, C)`` ones for a slot left without rows), replay
+        held next-epoch traffic, then broadcast seeded frontier markers."""
+        rt = self.rt
+        with self.lock:
+            self.part = msg.part
+            if msg.blocks is None:              # retiring / staying inactive
+                self.dense = {key: v[:0].clone()
+                              for key, v in self.dense.items()}
+            else:
+                self.dense = dict(msg.blocks)
+                np.maximum(self.clock_vc, msg.seed_vc, out=self.clock_vc)
+        self.epoch = msg.epoch
+        self._pending_part = None
+        self._pending_acks = set()
+        self._cut_done = False
+        held, self._held = self._held, []
+        run: List[UpdateMsg] = []
+        for m in held:
+            if isinstance(m, UpdateMsg):
+                run.append(m)
+            else:
+                self._flush_updates(run, site=REPLAY_SITE)
+                run = []
+                self._handle(m)
+        self._flush_updates(run, site=REPLAY_SITE)
+        for _ in held:
+            rt._msg_done()
+        # ESSP: deliveries the replay just parked must be FIFO-before the
+        # seeded markers that vouch for them
+        self._flush_essp_hold()
+        if self.part.owns(self.sid):
+            # seeded markers: deliveries for everything clock_vc covers are
+            # FIFO-before this on each s->q channel (replayed just above or
+            # published by the old owners, whose markers/INF still vouch),
+            # and install strictly follows every client's swap+ack, so the
+            # marker can never overtake the receiver's router swap
+            vc = self.vc_snapshot()
+            for q in range(rt.n_proc):
+                for p in range(rt.n_proc):
+                    if p != q and vc[p] >= 0:
+                        self._send(rt._chan_sp[self.sid][q],
+                                   ClockMarker(p, self.sid, int(vc[p]),
+                                               self.epoch))
+        # serving: existing subscribers lack the base values of rows that
+        # migrated INTO this slot (they only ever saw this slot's deltas) —
+        # push an in-stream re-bootstrap: a post-replay state + vc cut,
+        # FIFO-after everything already published, superseding any replay
+        # deltas still pending for them
+        if self.part.owns(self.sid) and self.subscribers:
+            for rid, chan in self.subscribers.items():
+                self._pub.pop(rid, None)
+                if rid in self._stale_subs:
+                    continue               # the resync path re-bootstraps
+                if not self._publish_send(chan, [ReplicaStateMsg(
+                        self.sid, self.state(), self.vc_snapshot(),
+                        epoch=msg.epoch)]):
+                    self._stale_subs = self._stale_subs | {rid}
+                    self.pub_drops += 1
+                    log.warning(
+                        "shard %d: replica %d re-bootstrap after epoch %d "
+                        "install dropped on a full sink — marked stale for "
+                        "resync", self.sid, rid, msg.epoch)
+        self._vc_dirty = True
+        rt.membership.inbox.put(("installed", self.sid, msg.epoch))
+
     # --------------------------------------------------------------- updates
-    def _flush_updates(self, run: List[UpdateMsg]) -> None:
+    def _flush_updates(self, run: List[UpdateMsg],
+                       site: Optional[str] = None) -> None:
         """Apply a run of update parts as one ordered scatter-add per key,
-        then route each through the (per-message) delivery state machine."""
+        then route each through the (per-message) delivery state machine.
+        ``site`` names the launches' call site in ``ps_apply``'s count
+        (the held replay at install)."""
         if not run:
             return
         rt = self.rt
@@ -458,7 +636,8 @@ class ServerShard:
                     # apply takes this kernel, which sorts the entries by row
                     # (stable) and walks each row's run in order; unique rows
                     # are runs of one, bitwise the same result.
-                    apply_ops.scatter_add_(dense, idx, d, rows_checked=True)
+                    apply_ops.scatter_add_(dense, idx, d, rows_checked=True,
+                                           site=site)
                 # serving: one coalesced delta per key per cycle per replica
                 # (global rows, host arrays shared between the replicas,
                 # which only read them)
@@ -734,6 +913,18 @@ class ServerShard:
         dense values."""
         with self.lock:
             return self._state_locked()
+
+    def device_cut(self) -> Dict[str, Tuple[np.ndarray, torch.Tensor]]:
+        """The membership handoff: per key, the global row ids (host) and
+        a clone of the block on the device, taken under the shard lock.
+        The clone is queued on the current stream, behind every apply
+        (the stream argument of :meth:`_state_locked`), so it holds the
+        blocks as the applies under this lock left them; nothing is copied
+        to the host."""
+        with self.lock:
+            return {key: (self.part.rows_of(key, self.sid).copy(),
+                          self.dense[key].clone())
+                    for key in self.dense}
 
     def _state_locked(self) -> Dict[str, Dict[str, np.ndarray]]:
         # The device-to-host copy runs on the current stream, which for

@@ -60,9 +60,9 @@ def take_snapshot(rt) -> dict:
     seeded from a snapshot report an honest staleness before its in-stream
     bootstrap arrives.
 
-    Only the *active* shards of the current epoch are captured (their row
-    sets cover the master exactly), under the runtime's op lock, which
-    elastic membership (ROADMAP Queue 1 item 5.4) will hold across a
+    Elastic membership: only the *active* shards of the current epoch are
+    captured (their row sets cover the master exactly), under the
+    membership op lock, so a snapshot can never interleave with a live
     re-partition's install window.
 
     Durability tier: when shards carry a WAL, each active shard's state
@@ -73,7 +73,7 @@ def take_snapshot(rt) -> dict:
     per-slot log prefix this snapshot covers, which :func:`recover_to_vc`
     skips on replay and :func:`repro_torch.runtime.wal.prune_segments`
     truncates by."""
-    with rt._op_lock:
+    with rt.membership.op_lock:
         acts = [s for s in rt.shards if rt.partition.owns(s.sid)]
         states, vcs, cut_marks = [], [], {}
         for s in acts:

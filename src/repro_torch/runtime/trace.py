@@ -39,9 +39,9 @@ Design rules (the same discipline as :mod:`repro_torch.runtime.metrics`):
 load the file in Perfetto's UI.  The audit helpers (:func:`explain_read`,
 :func:`explain_block`, :func:`staleness_timeline`) turn the same event log
 and the gateway's vc measurements into "name the straggler" answers; they
-are surfaced as methods on ``PSRuntime``.  Membership's ``EV_EPOCH``
-(ROADMAP Queue 1 item 5.4) is defined here so the numbering and the export
-match the JAX package's, but nothing records it yet.
+are surfaced as methods on ``PSRuntime``.  The membership manager records
+an ``epoch`` point (``EV_EPOCH``: the epoch and its active slot count) at
+each completed install.
 """
 from __future__ import annotations
 

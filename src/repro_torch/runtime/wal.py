@@ -29,8 +29,8 @@ A segment is a stream of the runtime's ordinary wire frames
   one package does not load in the other: the packages share snapshots
   (:mod:`repro_torch.runtime.snapshot`), not segment files;
 * the ``EOF_LEN`` sentinel marks a *sealed* segment (clean close: segment
-  rotation, runtime teardown; with elastic membership, ROADMAP Queue 1
-  item 5.4, also the epoch cut of a retiring slot).
+  rotation, runtime teardown, and the epoch cut of a slot that a
+  membership op retires).
   A segment without it is torn — killed mid-write — and the reader
   recovers cleanly to the last complete record (:func:`read_segment`).
 
@@ -196,10 +196,9 @@ class WalWriter:
     def seal(self, vc: Optional[np.ndarray] = None) -> None:
         """Flush everything, optionally stamp a final vc, write the EOF
         sentinel, fsync, and close the current segment.  Called at runtime
-        teardown (and, once membership is ported, at the epoch cut of a
-        retiring slot); idempotent —
-        a later :meth:`log_parts`/:meth:`commit` (slot re-activation)
-        simply opens the next segment."""
+        teardown and at the epoch cut of a retiring slot; idempotent — a
+        later :meth:`log_parts`/:meth:`commit` (slot re-activation) simply
+        opens the next segment."""
         frames = self._pending
         self._pending = []
         if vc is not None and (frames or self._file is not None

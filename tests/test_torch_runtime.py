@@ -387,12 +387,8 @@ def test_uid_dedup_records_and_prunes():
     dict(max_shards=4), dict(wal_dir="w"), dict(trace=True),
     dict(membership_plan=object())], ids=lambda kw: next(iter(kw)))
 def test_config_tiers_not_ported_raise(kw):
-    """Only elastic membership's fields still raise, naming its ROADMAP
-    item; the snapshot, WAL and tracing fields are ported and kept."""
-    if {"max_shards", "membership_plan"} & set(kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 5.4"):
-            RuntimeConfig(2, policies.bsp(), _x0(), device="cpu", **kw)
-        return
+    """Every tier's fields are ported: the snapshot, WAL, tracing and
+    elastic membership fields are kept as given, and none raises."""
     cfg = RuntimeConfig(2, policies.bsp(), _x0(), device="cpu", **kw)
     for name, value in kw.items():
         assert getattr(cfg, name) is value
