@@ -186,6 +186,30 @@ Phases, each printed as one JSON line:
            a full forward over prompt + that token, within 5e-2 of the
            logits' largest magnitude (bfloat16: the two paths round at
            other places through 38 and 24 layers).
+  train    Mamba2-130M trained at full width and depth (24 layers, d 768,
+           vocab 50,280; weights drawn on the card from --seed, float32
+           masters, bfloat16 compute): 2 replicas stacked on the card, each
+           on 4 SyntheticLM sequences of train_4k's 4,096 tokens a step
+           (train_4k's global batch of 256 cut to 8), 8 steps of
+           make_train_step with Adam and cvap(2, 1.8e-3), remat on; the
+           launch counters set to 0 just before the 8 steps and read just
+           after, and ssd_chunked / ssd_scan_bwd of the plain version
+           wrapped here to count calls.  Prints each step's wall, the
+           median after the first, tokens a second, the host's wait on the
+           data iterator, peak device memory, the losses, which steps
+           synced and which trigger was due (clock, value: the step's
+           max|delta| from vap_accum), then one more step under the
+           profiler: the device's busy and idle share, time by kernel name,
+           ssd_scan's forward (its three kernels) and backward (its six)
+           apart.  Then one reduced float32 Mamba2 step (SGD, cvap) on the
+           card against the same step on the CPU.  Checks: every loss
+           finite and the mean of the last two below the first; the VAP
+           invariant after every step; a step that synced and one that did
+           not; ssd_scan's forward 48 and backward 24 launches a replica
+           step (remat runs each unit's forward twice), vap_accum one a
+           leaf a step; no call of either plain version; the card's step
+           within loss rtol 1e-5 and params / delta rtol 2e-4, atol 2e-5
+           of the CPU's.
   kernels  each CUDA kernel against its plain PyTorch version, at the
            shapes the paths gave it (ps_apply's median call per table, no
            sentinel rows, as the shard sends none; MF's too; replica
@@ -243,7 +267,13 @@ Phases, each printed as one JSON line:
            process of this script (--topk-case N SEED), in a fresh CUDA
            context: late in a process that has profiled the paths,
            torch.profiler loses a window's first device events and skews
-           the durations of the rest.
+           the durations of the rest.  The ssd_scan backward at the train
+           path's first call (column slices of xBC) and at stress shapes
+           (padding, g > 1, an initial state, dfinal, both dtypes) against
+           its plain version (autograd through ssd_chunked in float32 on
+           the card), per output to 1e-4 of its largest magnitude + 1e-3
+           relative, plus 2^-6 relative where the output is bfloat16;
+           vap_accum also at the train path's largest leaf.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure raises: the exit code
@@ -253,6 +283,7 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import platform
@@ -997,7 +1028,8 @@ class Sites:
 @contextlib.contextmanager
 def path_run(dev, keep_first=False):
     """Drive one path inside the block: every kernel's launch counter set to
-    0 just before and read just after (into ``run["launches"]``), the shape
+    0 just before and read just after (into ``run["launches"]``; the
+    ssd_scan backward's as ``"ssd_scan_bwd"``), the shape
     of every call noted (``run["calls"]``; vap_accum's with the max it
     returned; with ``keep_first``, an LLM kernel's first call in each dtype
     keeps its inputs in ``run["first"][(kernel, dtype)]``), peak device
@@ -1045,10 +1077,16 @@ def path_run(dev, keep_first=False):
                 "vap_accum": vap_accum_}
     for k in KERNELS:
         setattr(mods[k], attrs[k], wrappers.get(k) or noting(k))
+    # ssd_scan's backward: its own counter, its calls noted as the others'
+    orig_bwd = ssd_ops.ssd_scan_bwd
+    orig["ssd_scan_bwd"] = orig_bwd
+    run["calls"]["ssd_scan_bwd"] = []
+    ssd_ops.ssd_scan_bwd = noting("ssd_scan_bwd")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for m in mods.values():
         m.launches = 0
+    ssd_ops.bwd_launches = 0
     apply_ops.launches_by_site.clear()
     for e in rg_ops.launches_by_entry:
         rg_ops.launches_by_entry[e] = 0
@@ -1058,7 +1096,9 @@ def path_run(dev, keep_first=False):
     finally:
         for k in KERNELS:
             setattr(mods[k], attrs[k], orig[k])
+        ssd_ops.ssd_scan_bwd = orig_bwd
         run["launches"] = {k: m.launches for k, m in mods.items()}
+        run["launches"]["ssd_scan_bwd"] = ssd_ops.bwd_launches
         run["ps_apply_by_site"] = dict(apply_ops.launches_by_site)
 
 
@@ -2498,6 +2538,380 @@ def run_serve_phase(dev, seed):
     return launches, first, lines
 
 
+# ---------------------------------------------------------------------------
+# train: Mamba2-130M at full width, replicas stacked on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_SEQ = 4_096                 # train_4k's sequence length
+TRAIN_REPLICAS, TRAIN_ROWS = 2, 4  # sequences a replica a step
+TRAIN_STEPS = 8
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+TRAIN_STALENESS = 2
+# Adam moves an entry by about lr_t a step (5e-4, then 1e-3 after the
+# warm-up), so max |δ| grows by about 1e-3 a step between syncs: the bound
+# lies between two steps' growth (1.5e-3 from the start, 2e-3 later) and
+# three's, so the clock is due first at the third step and the value
+# trigger alone fires at the second step after a sync
+TRAIN_VALUE_BOUND = 1.8e-3
+TRAIN_REDUCED = {"global_batch": f"{TRAIN_REPLICAS} replicas x {TRAIN_ROWS} "
+                                 f"sequences = {TRAIN_REPLICAS * TRAIN_ROWS} "
+                                 f"of train_4k's 256",
+                 "steps": f"{TRAIN_STEPS}"}
+# the ssd_scan backward against its plain version (float32 autograd through
+# ssd_chunked on the card): per output 1e-4 max|plain| + 1e-3 |plain|, plus
+# 2^-6 |plain| where the output is bfloat16 (both rounded to bfloat16)
+SSD_BWD_ENTRY = "float32 pipes: chunk masses, state passes, 32-row tiles, " \
+    "dt, group sums, dA (six launches)"
+SSD_BWD_KERNEL = re.compile(r"bwd_(chunk_state|state_pass|chunk|dt|"
+                            r"group_sum|dA)_kernel")
+TRAIN_STEP_RTOL, TRAIN_STEP_ATOL = 2e-4, 2e-5
+
+
+def _ssd_bwd_close(got, want):
+    """(ok, max abs err) of the backward's outputs (dx, ddt, dA, dB, dC,
+    dinit) against the plain version's."""
+    ok, err = True, 0.0
+    for g, w in zip(got, want):
+        if w is None:
+            ok &= g is None
+            continue
+        g32, w32 = g.float(), w.float()
+        tol = 1e-4 * float(w32.abs().max()) + 1e-3 * w32.abs()
+        if g.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -6 * w32.abs()
+        d = (g32 - w32).abs()
+        ok &= bool((d <= tol).all()) and g.dtype == w.dtype
+        err = max(err, float(d.max()))
+    return ok, err
+
+
+def check_ssd_bwd(dev, x, dt, A, B, C, chunk, initial_state, dy, dfinal):
+    """The backward kernel against its plain version on the card; times
+    both.  The bound counts the products the function needs once, at the
+    bf16 tensor-core rate, as the forward's row counts its own: over the
+    pairs s <= t of each chunk's real steps, C B^T, dC and dB once per
+    (batch, group) (the heads' dy xdt^T masks summed first) and dy xdt^T
+    and dxdt once per (batch, head); per step and head the four state
+    products (the backward mass, dC's, dxdt's and dB's terms; d a reuses
+    S_in^T dy).  The chunk-entry states are taken as given: recomputing
+    them, or reading them saved, costs more, so this stays a lower bound.
+    The bytes are x, dy, dx, B, C, dB, dC, dt, ddt, A, dA and the states
+    given or returned, each once."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    args = (x, dt, A, B, C, chunk, initial_state, dy, dfinal)
+    got = ops.ssd_scan_bwd(*args)
+    want = ref.ssd_scan_bwd(*args)
+    torch.cuda.synchronize()
+    ok, err = _ssd_bwd_close(got, want)
+    if not ok:
+        raise AssertionError(f"ssd_scan_bwd {tuple(x.shape)} {x.dtype}: "
+                             f"kernel != plain (max abs err {err})")
+    again = ops.ssd_scan_bwd(*args)
+    same = all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, again))
+    del want, again
+    big = x.numel() > 10_000_000
+    ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args), reps=10 if big else REPS)
+    plain_ms = cuda_ms(lambda: ref.ssd_scan_bwd(*args), reps=3, warmup=1)
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    cs = min(chunk, l)
+    # the pairs s <= t within each chunk (the last one may be short)
+    tri = sum(c * (c + 1) // 2
+              for c in (min(cs, l - k) for k in range(0, l, cs)))
+    fma = b * (g * 3 * n * tri + h * (2 * p * tri + 4 * p * n * l))
+    esize = x.element_size()
+    nbytes = (3 * x.numel() + 4 * B.numel()) * esize \
+        + 4 * (2 * dt.numel() + 2 * A.numel()) \
+        + sum(4 * t.numel() for t in (initial_state, dfinal, got[5])
+              if t is not None)
+    flops = 2 * fma
+    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+    return {"shape": f"x {'x'.join(map(str, x.shape))} B/C "
+                     f"{'x'.join(map(str, B.shape))} {_dname(x.dtype)} chunk "
+                     f"{chunk}" + (" initial state" if initial_state
+                                   is not None else "")
+                     + (" dfinal" if dfinal is not None else "")
+                     + ("" if x.is_contiguous() else " column slices"),
+            "entry": SSD_BWD_ENTRY, "tflops": flops / ms / 1e9,
+            "bound_share": bound_ms / ms, "max_abs_err": err,
+            "tolerance": "1e-4 max|plain| + 1e-3 |plain| (+ 2^-6 |plain| "
+                         "for a bfloat16 output)",
+            "same_bits_twice": same, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def ssd_bwd_stress_cases(dev):
+    """Padding, g > 1, an initial state and dfinal, column slices, in both
+    dtypes."""
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, l, h, gr, p, n, chunk, init, dfin in (
+                (2, 37, 4, 1, 8, 6, 8, False, True),
+                (1, 300, 4, 2, 64, 128, 256, True, True),
+                (2, 100, 6, 3, 16, 32, 32, True, False),
+                (1, 5, 2, 1, 3, 4, 16, False, True)):
+            xbc = randn(b, l, h * p + 2 * gr * n).to(dtype)
+            x = xbc[..., :h * p].reshape(b, l, h, p)
+            B = xbc[..., h * p:h * p + gr * n].reshape(b, l, gr, n)
+            C = xbc[..., h * p + gr * n:].reshape(b, l, gr, n)
+            dt = torch.nn.functional.softplus(randn(b, l, h) - 1.0)
+            A = -torch.exp(randn(h) * 0.5)
+            out.append(check_ssd_bwd(
+                dev, x, dt, A, B, C, chunk,
+                randn(b, h, p, n) if init else None,
+                randn(b, l, h, p).to(dtype),
+                randn(b, h, p, n) if dfin else None))
+    return out
+
+
+def train_step_card_vs_cpu(dev, seed):
+    """Two reduced float32 Mamba2 steps (SGD, cvap) on the card against the
+    same steps on the CPU, from one state and batch.  The value bound is
+    out of reach and the staleness 1, so step 1 does not sync and leaves
+    δ = -lr g on each replica, the step's gradient itself: it is held at
+    the gradients' tolerance.  Step 2 syncs on the clock, and the params
+    after it are held at the params' tolerance."""
+    from repro_torch.configs import ConsistencySpec, TrainConfig, \
+        reduced_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.state import init_train_state, map_state
+    from repro_torch.models.common import tree_paths
+
+    cfg = dataclasses.replace(reduced_config(TRAIN_ARCH), dtype="float32")
+    tcfg = TrainConfig(arch=TRAIN_ARCH, optimizer="sgd", lr=1e-2,
+                       warmup_steps=0, consistency=ConsistencySpec(
+                           model="cvap", staleness=1, value_bound=1e3))
+    cpu = init_train_state(cfg, tcfg, tp=1, dp=2, seed=seed, device="cpu")
+    # the same state on the card; the step and the clocks stay on the host
+    host = {id(t) for t in (cpu.step, cpu.opt.count,
+                            cpu.sync.steps_since_sync, cpu.sync.sync_count)}
+    card = map_state(lambda t: t if id(t) in host else t.to(dev, copy=True),
+                     cpu)
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, (4, 65)).astype(np.int32)
+    batch = {"ids": ids[:, :-1], "labels": ids[:, 1:]}
+    step = steps.make_train_step(cfg, tcfg)
+
+    def gap(got, want):
+        """(max |got - want|, max excess over the tolerance)."""
+        d = (got.cpu() - want).abs()
+        return float(d.max()), float((d - TRAIN_STEP_ATOL - TRAIN_STEP_RTOL
+                                      * want.abs()).max())
+
+    out, ok = {"loss_rel_err": [], "synced": []}, True
+    for i in (1, 2):
+        cpu, m_cpu = step(cpu, batch)
+        card, m_card = step(card, batch)
+        torch.cuda.synchronize()
+        out["loss_rel_err"].append(
+            abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+            / abs(float(m_cpu["loss"])))
+        out["synced"].append([float(m_card["synced"]),
+                              float(m_cpu["synced"])])
+        if i == 1:
+            # the gradients, as -δ / lr on both sides
+            lr = float(m_cpu["lr"])
+            gaps = [gap(-card.sync.delta[n] / lr, -want / lr)
+                    for n, want in cpu.sync.delta.items()]
+            out["grad_max_abs_err"] = max(g for g, _ in gaps)
+            out["grad_max_abs"] = max(float(w.abs().max()) / lr
+                                      for w in cpu.sync.delta.values())
+        else:
+            gaps = [gap(tree_paths(card.params)[n], want)
+                    for n, want in tree_paths(cpu.params).items()]
+            out["params_max_abs_err"] = max(g for g, _ in gaps)
+        ok &= max(e for _, e in gaps) <= 0.0
+    ok &= max(out["loss_rel_err"]) <= 1e-5 \
+        and out["synced"] == [[0.0, 0.0], [1.0, 1.0]]
+    return {"config": f"{cfg.name} float32, 2 replicas x 2 x 64 tokens, "
+                      f"sgd lr 1e-2, cvap(1, 1e3), 2 steps",
+            **out, "ok": ok,
+            "tolerance": f"loss rtol 1e-5; step 1's gradients (-δ / lr) "
+                         f"and step 2's params rtol {TRAIN_STEP_RTOL}, atol "
+                         f"{TRAIN_STEP_ATOL}; synced [0, 1] on both"}
+
+
+def run_train_phase(dev, seed, smi):
+    """Mamba2-130M at full width and depth, trained on the card over
+    TRAIN_REPLICAS replicas stacked there, each on TRAIN_ROWS sequences of
+    TRAIN_SEQ SyntheticLM tokens a step; Adam, cvap.  Returns (launches,
+    the backward's first call, lines)."""
+    from repro_torch.configs import ConsistencySpec, TrainConfig, get_config
+    from repro_torch.core import policies
+    from repro_torch.core.sync import vap_invariant_ok
+    from repro_torch.data import SyntheticLM, batches
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.launch import steps
+    from repro_torch.launch.state import init_train_state
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)                         # bfloat16 compute
+    tcfg = TrainConfig(arch=TRAIN_ARCH, optimizer="adam", lr=TRAIN_LR,
+                       warmup_steps=TRAIN_WARMUP, seed=seed,
+                       consistency=ConsistencySpec(
+                           model="cvap", staleness=TRAIN_STALENESS,
+                           value_bound=TRAIN_VALUE_BOUND))
+    policy = policies.from_spec(tcfg.consistency)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    state = init_train_state(cfg, tcfg, tp=1, dp=TRAIN_REPLICAS, seed=seed,
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_leaves = len(tree_leaves(state.params))
+    n_params = sum(x[0].numel() for x in tree_leaves(state.params))
+    step_fn = steps.make_train_step(cfg, tcfg)
+    it = batches(SyntheticLM(cfg.vocab_size, seed=seed),
+                 TRAIN_REPLICAS * TRAIN_ROWS, TRAIN_SEQ)
+
+    # the plain versions are counted, and must not run on this path
+    plain = {"ssd_chunked": 0, "ssd_scan_bwd": 0}
+    orig_plain = {k: getattr(ssd_ref, k) for k in plain}
+
+    def counting(name):
+        def call(*a, **kw):
+            plain[name] += 1
+            return orig_plain[name](*a, **kw)
+        return call
+
+    losses, synced, triggers, walls, waits, gmax, invariant = \
+        [], [], [], [], [], [], []
+    for k in plain:
+        setattr(ssd_ref, k, counting(k))
+    try:
+        with path_run(dev, keep_first=True) as run:
+            for i in range(TRAIN_STEPS):
+                t = time.perf_counter()
+                batch = next(it)
+                t_data = time.perf_counter()
+                since = int(state.sync.steps_since_sync[0])
+                n_vap = len(run["calls"]["vap_accum"])
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+                waits.append(t_data - t)
+                walls.append(t_end - t)
+                losses.append(float(metrics["loss"]))
+                synced.append(bool(metrics["synced"]))
+                step_max = max(float(m) for _, m in
+                               run["calls"]["vap_accum"][n_vap:])
+                gmax.append(step_max)
+                reasons = []
+                if since + 1 >= TRAIN_STALENESS + 1:
+                    reasons.append("clock")
+                if step_max > TRAIN_VALUE_BOUND:
+                    reasons.append("value")
+                triggers.append(reasons)
+                invariant.append(bool(vap_invariant_ok(policy,
+                                                       state.sync).all()))
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = run["launches"]
+        first_bwd = run["first"].get(("ssd_scan_bwd", torch.bfloat16))
+        fwd_calls = len(run["calls"]["ssd_scan"])
+        del run
+
+        # one more step, profiled (its counts checked apart)
+        batch = next(it)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with path_run(dev) as prun, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t
+        prof_launches = prun["launches"]
+        del prun
+    finally:
+        for k, fn in orig_plain.items():
+            setattr(ssd_ref, k, fn)
+    device_s = device_seconds(prof)
+    busy_s = sum(device_s.values())
+    fwd_s = ssd_scan_seconds(device_s, prof_launches["ssd_scan"])
+    bwd_by_name = {k: v for k, v in device_s.items()
+                   if SSD_BWD_KERNEL.search(k)}
+    bwd_s = sum(bwd_by_name.values())
+    del state, prof
+    torch.cuda.empty_cache()
+
+    tokens = TRAIN_REPLICAS * TRAIN_ROWS * TRAIN_SEQ
+    step_med = statistics.median(walls[1:])
+    card_vs_cpu = train_step_card_vs_cpu(dev, seed)
+    per_step = TRAIN_REPLICAS * TRAIN_STEPS
+    want = {"ssd_scan": (2 if tcfg.remat else 1) * cfg.n_layers * per_step,
+            "ssd_scan_bwd": cfg.n_layers * per_step,
+            "vap_accum": n_leaves * TRAIN_STEPS}
+    got = {k: launches[k] for k in want}
+    line = {"phase": "train", "model": TRAIN_ARCH, "nvidia_smi": smi,
+            "params": n_params, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "dtype": cfg.dtype, "master_dtype": "float32",
+            "replicas": TRAIN_REPLICAS, "rows_per_replica": TRAIN_ROWS,
+            "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
+            "reduced": TRAIN_REDUCED, "optimizer": "adam", "lr": TRAIN_LR,
+            "warmup_steps": TRAIN_WARMUP, "remat": tcfg.remat,
+            "policy": f"cvap({TRAIN_STALENESS}, {TRAIN_VALUE_BOUND})",
+            "init_s": init_s,
+            "step_wall_s": walls, "step_wall_median_s": step_med,
+            "tokens_per_s": tokens / step_med,
+            "data_wait_s": waits, "data_wait_total_s": sum(waits),
+            "peak_device_bytes": peak,
+            "losses": losses, "synced": synced, "triggers": triggers,
+            "delta_max_abs": gmax, "vap_invariant_ok": invariant,
+            "launches": got, "launches_per_replica_step": {
+                k: v / per_step for k, v in got.items() if k != "vap_accum"},
+            "vap_accum_per_step": got["vap_accum"] / TRAIN_STEPS,
+            "leaves": n_leaves, "ssd_scan_forward_calls": fwd_calls,
+            "plain_calls": plain,
+            "profiled": {"what": "one more step", "wall_s": prof_wall_s,
+                         "device_busy_s": busy_s,
+                         "device_idle_share": 1.0 - busy_s / prof_wall_s,
+                         "launches": {k: prof_launches[k] for k in want},
+                         "ssd_scan_forward_device_s": fwd_s,
+                         "ssd_scan_backward_device_s": bwd_s,
+                         "ssd_scan_backward_by_name": {
+                             _short(k): v for k, v in bwd_by_name.items()},
+                         "elementwise_device_s": sum(
+                             v for k, v in device_s.items()
+                             if ELEMENTWISE.search(k)),
+                         "device_s_by_name": dict(sorted(
+                             device_s.items(), key=lambda kv: -kv[1])[:25])},
+            "card_vs_cpu_step": card_vs_cpu}
+    emit(line)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if not (losses[-1] + losses[-2]) / 2 < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if not all(invariant):
+        raise AssertionError(f"train: the VAP invariant broke: {invariant}")
+    if not (any(synced) and not all(synced)):
+        raise AssertionError(f"train: synced {synced}: need a step that "
+                             f"synced and one that did not")
+    if got != want:
+        raise AssertionError(f"train: launched {got}, not {want}")
+    if prof_launches["ssd_scan_bwd"] != cfg.n_layers * TRAIN_REPLICAS:
+        raise AssertionError(f"train: the profiled step launched "
+                             f"{prof_launches}")
+    if any(plain.values()):
+        raise AssertionError(f"train: the plain versions ran: {plain}")
+    if not bwd_by_name or fwd_s is None:
+        raise AssertionError("train: the profile shows no ssd_scan kernel")
+    if first_bwd is None:
+        raise AssertionError("train: no bfloat16 ssd_scan_bwd call noted")
+    if not card_vs_cpu["ok"]:
+        raise AssertionError(f"train: a step on the card != on the CPU: "
+                             f"{card_vs_cpu}")
+    return launches, first_bwd, line
+
+
 def path_shapes(calls):
     """The median call of each kernel on the main path: ps_apply's per
     (R, C) block, heaviest block first, and topk_mag's per length."""
@@ -2563,6 +2977,8 @@ def main() -> None:
     for name in ("flash_attention", "rglru_scan"):
         launches[name] = serve_launches["recurrentgemma-9b"][name]
     launches["ssd_scan"] = serve_launches["mamba2-130m"]["ssd_scan"]
+    train_launches, first_bwd, _ = run_train_phase(dev, args.seed, smi)
+    launches["ssd_scan_bwd"] = train_launches["ssd_scan_bwd"]
 
     # first the paths' shapes (the table's rows), then stress shapes: a
     # batch 40,000 rows deep with sentinels in f64 and f32, a batch of 4,096
@@ -2618,6 +3034,14 @@ def main() -> None:
     stress = llm_stress_cases(dev)
     for name, path_cases in path_llm.items():
         cases[name] = path_cases + stress[name]
+    # the ssd_scan backward at the train path's first call, then stress;
+    # vap_accum at the train path's largest leaf (the embedding, stacked)
+    cases["ssd_scan_bwd"] = ([check_ssd_bwd(dev, *first_bwd[0])]
+                             + ssd_bwd_stress_cases(dev))
+    del first_bwd
+    torch.cuda.empty_cache()
+    train_vap = check_vap_accum(dev, (TRAIN_REPLICAS, 50_280, 768),
+                                torch.float32, 55)
     linear_recurrence = stress["linear_recurrence"]
     emit({"phase": "kernels",
           "tolerance": "bitwise (0) for ps_apply, topk_mag, vap_accum, "
@@ -2644,7 +3068,12 @@ def main() -> None:
               "ssd_scan": ("src/repro_torch/kernels/ssd_scan/kernel.cu",
                            "src/repro/kernels/ssd_scan/kernel.py:79"),
               "rglru_scan": ("src/repro_torch/kernels/rglru_scan/kernel.cu",
-                             "src/repro/kernels/rglru_scan/kernel.py:88")}
+                             "src/repro/kernels/rglru_scan/kernel.py:88"),
+              "ssd_scan_bwd": (
+                  "src/repro_torch/kernels/ssd_scan/backward.cu",
+                  "none: no TPU kernel (the JAX package differentiates "
+                  "src/repro/kernels/ssd_scan/ref.py:34 with "
+                  "jax.value_and_grad)")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     table = []
@@ -2660,7 +3089,11 @@ def main() -> None:
                       "elastic_autoscale_launches": autoscale_launches[name],
                       "replay_launches": {
                           k: v[name] for k, v in replay_launches.items()},
+                      "train_launches": train_launches[name],
                       **{k: main_case[k] for k in keys}})
+    # vap_accum on the train path: one launch a leaf a step
+    table[2]["train"] = {"launches": train_launches["vap_accum"],
+                         **{k: train_vap[k] for k in keys}}
     # ps_apply's second call site: replica ingest, at its median call on
     # the full word_topic buffer; launches: the replicas' own in the
     # replicas phase's main run
@@ -2676,7 +3109,8 @@ def main() -> None:
     # each entry's own count over RecurrentGemma-9B's prefill
     rg_launches = serve_lines["recurrentgemma-9b"][
         "rglru_scan_launches_prefill_by_entry"]
-    table[-1]["entries"] = [
+    rg_row = next(r for r in table if r["name"] == "rglru_scan")
+    rg_row["entries"] = [
         {"entry": case["entry"], "replaces": source["rglru_scan"][1],
          "launches": rg_launches[case["entry"]],
          **{k: case[k] for k in keys}}

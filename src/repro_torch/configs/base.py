@@ -1,17 +1,19 @@
 """Configuration dataclasses of the model zoo (the port's copy).
 
 The same frozen dataclasses as the JAX package's ``configs/base.py``, so a
-configuration prints and compares the same in both packages.  Left out:
-``TrainConfig``, which belongs to training (ROADMAP Queue 1 item 6), and
-``ConsistencySpec``, which the port keeps in :mod:`repro_torch.core.policies`.
+configuration prints and compares the same in both packages, ``TrainConfig``
+included.  ``ConsistencySpec`` is the one of :mod:`repro_torch.core.policies`
+(``TrainConfig.consistency`` takes it), re-exported here.
 The registry in :mod:`repro_torch.configs.registry` maps ``--arch`` ids onto
 the configurations the port serves.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+from repro_torch.core.policies import ConsistencySpec
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +223,28 @@ class InputShape:
     seq_len: int
     global_batch: int
     mode: str                         # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    arch: str = "olmo-1b"
+    shape: str = "train_4k"
+    steps: int = 100
+    lr: float = 3e-4
+    warmup_steps: int = 10
+    weight_decay: float = 0.0
+    optimizer: str = "adam"           # "sgd" | "momentum" | "adam"
+    seed: int = 0
+    consistency: ConsistencySpec = field(default_factory=ConsistencySpec)
+    remat: bool = True
+    microbatch: int = 0               # 0 = no microbatching
+    log_every: int = 10
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+    # beyond-paper options
+    quantize_sync: bool = False       # bf16 delta all-reduce (error feedback)
+    hierarchical_sync: int = 0        # sync across pods every k-th sync
+    state_dtype: str = "float32"      # delta + Adam moments storage dtype
 
 
 def replace(cfg, **kw):

@@ -20,6 +20,13 @@ the JAX package's ``instantiate_tree(model_defs(cfg, 1), key)`` as numpy
 (nested dicts and lists, ``scan`` leaves stacked over the units) and gives
 the port's tree of the same layout and dtypes, which
 :func:`repro_torch.models.model.load_params` then casts for compute.
+
+And a whole train state: :func:`train_state_from_reference` takes the JAX
+package's ``TrainState`` with numpy leaves (params, ``OptState``,
+``SyncState``, step; with a leading replica dimension or without) and gives
+the port's :class:`~repro_torch.launch.state.TrainState`, whose sync state
+keeps flat dicts keyed by the ``/``-joined parameter paths;
+:func:`train_state_to_numpy` gives it back as numpy, in the same keys.
 """
 from __future__ import annotations
 
@@ -116,3 +123,43 @@ def model_params_from_reference(tree: Any, device) -> Any:
     from repro_torch.models.common import tree_map
 
     return tree_map(lambda a: _to_tensor(a, device), tree)
+
+
+def train_state_from_reference(state: Any, device):
+    """The JAX package's ``TrainState`` with numpy leaves as the port's
+    ``TrainState``: params and the moments on ``device`` (each leaf's dtype
+    and shape kept), the sync state as :func:`sync_state_from_reference`
+    makes it from the flattened trees, the step and the optimizer's count as
+    int32 host tensors.  Always copies."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch.state import TrainState
+    from repro_torch.models.common import tree_paths
+    from repro_torch.optim import OptState
+
+    sync = state.sync
+    flat = SimpleNamespace(
+        **{f: tree_paths(getattr(sync, f)) for f in _SYNC_TREES},
+        **{f: getattr(sync, f) for f in _SYNC_SCALARS})
+    return TrainState(
+        params=model_params_from_reference(state.params, device),
+        opt=OptState(mu=model_params_from_reference(state.opt.mu, device),
+                     nu=model_params_from_reference(state.opt.nu, device),
+                     count=_to_tensor(state.opt.count, "cpu")
+                     .to(torch.int32)),
+        sync=sync_state_from_reference(flat, device),
+        step=_to_tensor(state.step, "cpu").to(torch.int32))
+
+
+def train_state_to_numpy(state) -> Dict[str, Any]:
+    """The port's ``TrainState`` on the host: ``{"params": tree, "opt":
+    {"mu": tree, "nu": tree, "count": array}, "sync":
+    sync_state_to_numpy(...), "step": array}``, bfloat16 as float32."""
+    from repro_torch.models.common import tree_map
+
+    return {"params": tree_map(_to_array, state.params),
+            "opt": {"mu": tree_map(_to_array, state.opt.mu),
+                    "nu": tree_map(_to_array, state.opt.nu),
+                    "count": _to_array(state.opt.count)},
+            "sync": sync_state_to_numpy(state.sync),
+            "step": _to_array(state.step)}

@@ -30,3 +30,18 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but no CUDA device is available; "
             "pass device='cpu' to run on the host")
     return dev
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A kernel with no backward refuses to join an autograd graph: on the
+    card, under grad mode, an input that requires grad raises
+    ``NotImplementedError`` instead of an output with no graph, which would
+    cut the gradient of every parameter upstream without a word.  Under
+    ``torch.no_grad`` / ``torch.inference_mode`` (the serve steps) nothing
+    is refused."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward yet, so it cannot be "
+            f"differentiated on the card (ROADMAP Queue 1 item 6.1b: the "
+            f"rglru_scan and flash_attention backward kernels)")

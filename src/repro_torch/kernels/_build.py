@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
-Every ``kernels/*/kernel.cu`` is compiled for Hopper (``sm_90a``) by its own
-``nvcc`` process, all started together, and the objects are linked into one
+Every CUDA source of a kernel subpackage (``kernels/*/*.cu``: each
+``kernel.cu``, and ``ssd_scan/backward.cu``) is compiled for Hopper
+(``sm_90a``) by its own ``nvcc`` process, all started together, and the objects are linked into one
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 build runs at first use, from the package's own sources, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``); the
@@ -38,7 +39,7 @@ BUILD_INFO: Dict[str, object] = {}
 
 def sources() -> List[Path]:
     """The CUDA sources of every kernel subpackage, in a fixed order."""
-    return sorted(KERNELS_DIR.glob("*/kernel.cu"))
+    return sorted(KERNELS_DIR.glob("*/*.cu"))
 
 
 def _nvcc() -> str:
@@ -64,7 +65,7 @@ def _compile(srcs: List[Path], out: Path) -> str:
     tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
     procs: List[subprocess.Popen] = []
     try:
-        objs = [tmp / f"{s.parent.name}.o" for s in srcs]
+        objs = [tmp / f"{s.parent.name}_{s.stem}.o" for s in srcs]
         procs = [subprocess.Popen([nvcc, *ARCH, *CFLAGS, "-c", str(s),
                                    "-o", str(o)],
                                   stdout=subprocess.PIPE,

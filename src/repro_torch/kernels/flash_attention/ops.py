@@ -7,7 +7,10 @@ the full-sequence (prefill) attention of
 kernel's (``flash_attention/kernel.py:86``): positions are shared by the
 batch, ``q_pos`` (sq,) and ``k_pos`` (skv,), and 2-D positions are refused
 with ``ValueError`` on either device; decode, whose positions differ per
-request, keeps the plain version (``ref.attention``).
+request, keeps the plain version (``ref.attention``).  The kernel has no
+backward yet: on the card an input that requires grad under grad mode
+raises (:func:`repro_torch.kernels.refuse_grad`); on the CPU the plain
+version is differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention import ref
 
 # kernel launches made by flash_attention (reset by callers that count a run)
@@ -96,6 +99,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, q_pos, k_pos)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, q_pos, k_pos, window=window, cap=cap)
+    refuse_grad("flash_attention", q, k, v)
     b, sq, kvh, G, dh = q.shape
     skv, dv = k.shape[1], v.shape[-1]
     out = torch.empty((b, sq, kvh, G, dv), dtype=q.dtype, device=q.device)

@@ -6,6 +6,9 @@ recurrence and h's cast, as the reference's ``rglru_pallas`` computes the
 gates in jnp around its recurrence kernel.  ``linear_recurrence`` is the
 bare recurrence (the reference's ``linear_recurrence_pallas``), the same
 kernel with the gates left out.  Decode runs the plain ``rglru_step``.
+Neither kernel has a backward yet: on the card an input that requires grad
+under grad mode raises (:func:`repro_torch.kernels.refuse_grad`); on the
+CPU the plain versions are differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.rglru_scan import ref
 
 # kernel launches made by rglru and linear_recurrence, in all and by entry
@@ -139,6 +142,7 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor,
     _check("linear_recurrence", (a, b), initial, (torch.float32,))
     if a.device.type == "cpu":
         return ref.linear_recurrence(a, b, initial)
+    refuse_grad("linear_recurrence", a, b, initial)
     return _launch("linear_recurrence_f32", (a, b), initial)
 
 
@@ -154,5 +158,6 @@ def rglru(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
            a_param)
     if x.device.type == "cpu":
         return ref.rglru(x, r_gate, i_gate, a_param, initial, c)
+    refuse_grad("rglru", x, r_gate, i_gate, a_param, initial)
     return _launch(RGLRU_ENTRIES[x.dtype], (x, r_gate, i_gate), initial,
                    a_param, float(c))

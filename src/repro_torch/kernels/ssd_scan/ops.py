@@ -1,11 +1,17 @@
 """Public SSD-scan op: the CUDA kernels for CUDA tensors, ``ref`` on CPU.
 
 ``ssd_scan`` is what :func:`repro_torch.models.recurrent.mamba2_fwd` runs
-over a whole sequence (prefill); decode runs the plain ``ssd_step``.  On the
-card the entry follows the dtype: bfloat16 runs three tensor-core launches
-parallel over chunks (the chunks' state mass, the pass that carries the
-state across chunks, the chunks' outputs), float32 the one float32-pipe
-kernel; neither falls back to the other.
+over a whole sequence (prefill and training); decode runs the plain
+``ssd_step``.  On the card the entry follows the dtype: bfloat16 runs three
+tensor-core launches parallel over chunks (the chunks' state mass, the pass
+that carries the state across chunks, the chunks' outputs), float32 the one
+float32-pipe kernel; neither falls back to the other.
+
+On the card, where an input requires grad under grad mode, ``ssd_scan`` is
+a ``torch.autograd.Function``: its backward is :func:`ssd_scan_bwd`, the
+kernels of ``backward.cu`` (both dtypes, float32 arithmetic); otherwise it
+launches the forward alone.  On the CPU it is ``ref.ssd_chunked``, which
+autograd differentiates as it is.
 """
 from __future__ import annotations
 
@@ -19,8 +25,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import ref
 
-# kernel launches made by ssd_scan (reset by callers that count a run)
+# kernel calls made by ssd_scan and by its backward, one per call (reset by
+# callers that count a run)
 launches = 0
+bwd_launches = 0
 _COUNT_LOCK = threading.Lock()
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256   # the kernel's tiles
@@ -30,7 +38,8 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGS = {"ssd_scan_f32": [_INT] + [_P] * 8 + [_I64] * 11 + [_P],
          "ssd_chunk_state_bf16": [_INT] + [_P] * 6 + [_I64] * 11 + [_INT, _P],
          "ssd_state_pass": [_INT] + [_P] * 5 + [_I64] * 6 + [_P],
-         "ssd_chunk_scan_bf16": [_INT] + [_P] * 7 + [_I64] * 11 + [_INT, _P]}
+         "ssd_chunk_scan_bf16": [_INT] + [_P] * 7 + [_I64] * 11 + [_INT, _P],
+         "ssd_scan_bwd": [_INT, _INT] + [_P] * 22 + [_I64] * 11 + [_P]}
 
 ssd_step = ref.ssd_step
 
@@ -95,6 +104,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, A, B, C, chunk,
                                initial_state=initial_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, initial_state)):
+        return _SSDScan.apply(x, dt, A, B, C, initial_state, chunk)
+    # no gradient wanted (serving): the launches without the Function
+    return _forward(x, dt, A, B, C, chunk, initial_state)
+
+
+def _forward(x, dt, A, B, C, chunk, initial_state):
+    """The forward launches on the card (inputs checked)."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     dev, f32 = x.device, torch.float32
@@ -146,6 +165,98 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     with _COUNT_LOCK:
         launches += 1
     return y, fin
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan on the card with its gradient: forward :func:`_forward`,
+    backward :func:`ssd_scan_bwd`.  x, B and C are saved as the views they
+    came in as."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, initial_state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, B, C, initial_state)
+        return _forward(x, dt, A, B, C, chunk, initial_state)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C, init = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(x, dt, A, B, C, ctx.chunk,
+                                                  init, dy, dfinal)
+        return dx, ddt, dA, dB, dC, dinit, None
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int,
+                 initial_state: Optional[torch.Tensor], dy: torch.Tensor,
+                 dfinal: Optional[torch.Tensor] = None):
+    """The vector-Jacobian product of :func:`ssd_scan`: given dy (b, l, h,
+    p) and optionally dfinal (b, h, p, n), returns (dx, ddt, dA, dB, dC,
+    dinit): dx in x's dtype, ddt (b, l, h), dA (h,) and dinit (b, h, p, n)
+    float32 (dinit None without an initial state), dB and dC (b, l, g, n) in
+    B's dtype.  On the card dy has x's dtype and dfinal is float32, with
+    :func:`ssd_scan`'s limits; a CPU tensor takes ``ref.ssd_scan_bwd``."""
+    _check(x, dt, A, B, C, chunk, initial_state)
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if tuple(dy.shape) != (b, l, h, p) or (
+            dfinal is not None and tuple(dfinal.shape) != (b, h, p, n)):
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} / dfinal "
+                         f"{None if dfinal is None else tuple(dfinal.shape)}"
+                         f" do not match x {tuple(x.shape)}, n {n}")
+    if dy.device != x.device or (dfinal is not None
+                                 and dfinal.device != x.device):
+        raise ValueError("ssd_scan_bwd: tensors must share a device")
+    if x.device.type == "cpu":
+        return ref.ssd_scan_bwd(x, dt, A, B, C, chunk, initial_state, dy,
+                                dfinal)
+    if dy.dtype != x.dtype or (dfinal is not None
+                               and dfinal.dtype != torch.float32):
+        raise TypeError(f"ssd_scan_bwd: dy must have x's dtype and dfinal "
+                        f"float32, got {dy.dtype} / "
+                        f"{None if dfinal is None else dfinal.dtype}")
+    dev, f32 = x.device, torch.float32
+    init = None if initial_state is None else initial_state.contiguous()
+    dx = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, l, h), dtype=f32, device=dev)
+    dA = torch.empty((h,), dtype=f32, device=dev)
+    dB = torch.empty((b, l, g, n), dtype=B.dtype, device=dev)
+    dC = torch.empty((b, l, g, n), dtype=C.dtype, device=dev)
+    dinit = None if init is None else torch.empty_like(init)
+    if x.numel() == 0:                 # no step: the state passes through
+        if dinit is not None and dfinal is not None:
+            dinit.copy_(dfinal)
+        elif dinit is not None:
+            dinit.zero_()
+        return dx, ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_(), dinit
+    x, B, C = _packed(x), _packed(B), _packed(C)
+    if B.stride() != C.stride():
+        B, C = B.contiguous(), C.contiguous()
+    dt, A, dy = dt.contiguous(), A.contiguous(), dy.contiguous()
+    dfin = None if dfinal is None else dfinal.contiguous()
+    cs = min(chunk, l)
+    nc = -(-l // cs)
+    nblk = -(-(p * n) // 256)
+    acum = torch.empty((b, h, nc * cs), dtype=f32, device=dev)
+    states = torch.empty((2, b, nc, h, p, n), dtype=f32, device=dev)
+    sdot = torch.empty((b, nc, h, nblk), dtype=f32, device=dev)
+    rqx = torch.empty((3, b, h, nc * cs), dtype=f32, device=dev)
+    dBh = torch.empty((2, b, l, h, n), dtype=f32, device=dev)
+    dA_part = torch.empty((b, nc, h), dtype=f32, device=dev)
+    _launch(dev, "ssd_scan_bwd", int(x.dtype == torch.bfloat16), _ptr(x),
+            _ptr(dt), _ptr(A), _ptr(B), _ptr(C), _ptr(init), _ptr(dy),
+            _ptr(dfin), _ptr(dx), _ptr(ddt), _ptr(dA), _ptr(dB), _ptr(dC),
+            _ptr(dinit), _ptr(acum), _ptr(states[0]), _ptr(states[1]),
+            _ptr(sdot), _ptr(rqx), _ptr(dBh[0]), _ptr(dBh[1]),
+            _ptr(dA_part), b, l, h, g, p, n, cs, x.stride(0), x.stride(1),
+            B.stride(0), B.stride(1))
+    global bwd_launches
+    with _COUNT_LOCK:
+        bwd_launches += 1
+    return dx, ddt, dA, dB, dC, dinit
 
 
 def _packed(t: torch.Tensor) -> torch.Tensor:

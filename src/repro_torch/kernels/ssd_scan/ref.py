@@ -124,3 +124,32 @@ def ssd_step(h_state: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
            + inp[..., None] * B_t.float()[..., None, :])
     y = torch.einsum("bhpn,bhn->bhp", new, C_t.float())
     return y.to(x_t.dtype), new
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int,
+                 initial_state: Optional[torch.Tensor], dy: torch.Tensor,
+                 dfinal: Optional[torch.Tensor] = None):
+    """The plain version of the backward kernel: the vector-Jacobian product
+    of :func:`ssd_chunked` by ``torch.autograd.grad``, computed in float32
+    (every input cast first, as the kernel computes).  Returns (dx, ddt, dA,
+    dB, dC, dinit): dx in x's dtype, dB and dC in B's, the rest float32;
+    dinit is None without an initial state."""
+    f32 = torch.float32
+    with torch.enable_grad():
+        ins = [t.detach().to(f32).requires_grad_(True)
+               for t in (x, dt, A, B, C)]
+        init = (None if initial_state is None else
+                initial_state.detach().to(f32).requires_grad_(True))
+        y, fin = ssd_chunked(*ins, chunk, initial_state=init)
+        outs, seeds = [y], [dy.detach().to(f32)]
+        if dfinal is not None:
+            outs.append(fin)
+            seeds.append(dfinal.detach().to(f32))
+        wrt = ins + ([init] if init is not None else [])
+        grads = torch.autograd.grad(outs, wrt, seeds, allow_unused=True)
+    grads = [torch.zeros_like(w) if gr is None else gr
+             for gr, w in zip(grads, wrt)]
+    dx, ddt, dA, dB, dC = grads[:5]
+    dinit = grads[5] if init is not None else None
+    return (dx.to(x.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype), dinit)

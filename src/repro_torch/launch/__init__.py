@@ -1,1 +1,3 @@
-"""Step factories of the port: prefill and serve at tp = 1 on one card."""
+"""Step factories, train state and the training loop of the port, at
+tp = 1 on one card: prefill and serve, and training with replicas stacked
+on the card."""

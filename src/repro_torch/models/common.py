@@ -32,23 +32,59 @@ PyTree = Any
 # ---------------------------------------------------------------------------
 
 
-def tree_map(fn: Callable, tree: PyTree,
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
              is_leaf: Optional[Callable[[Any], bool]] = None) -> PyTree:
     """``fn`` over the leaves of a tree of dicts and lists, keeping its
-    structure."""
+    structure; with ``rest``, trees of the same structure whose leaves are
+    passed beside the first's."""
     if is_leaf is not None and is_leaf(tree):
-        return fn(tree)
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v, is_leaf) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_map_paths(fn: Callable, tree: PyTree, sep: str = "/") -> PyTree:
+    """``fn(path, leaf)`` over the leaves of a tree, keeping its structure;
+    each path as :func:`tree_paths` names it."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(t)]
+        return fn(sep.join(path), t)
+    return walk(tree, ())
 
 
 def tree_leaves(tree: PyTree, is_leaf: Optional[Callable[[Any], bool]] = None
                 ) -> list:
     out = []
     tree_map(out.append, tree, is_leaf=is_leaf)
+    return out
+
+
+def tree_paths(tree: PyTree, sep: str = "/") -> Dict[str, Any]:
+    """``{path: leaf}`` of a tree of dicts and lists: each path the keys and
+    list indices joined by ``sep``, dict keys in sorted order (the order
+    ``jax.tree_util`` flattens a dict in), so that the paths and their order
+    are the JAX package's.  The leaves are the tree's own (views, for
+    tensors)."""
+    out: Dict[str, Any] = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (str(k),))
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, path + (str(i),))
+        else:
+            out[sep.join(path)] = t
+    walk(tree, ())
     return out
 
 

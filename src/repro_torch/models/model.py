@@ -1,13 +1,20 @@
-"""Model assembly: blocks -> stacked units -> language model, for serving.
+"""Model assembly: blocks -> stacked units -> language model.
 
-The port of the JAX package's ``models/model.py`` at tp = 1, all of it but
-``lm_loss`` (training comes later, ROADMAP Queue 1 item 6).  The parameter
+The port of the JAX package's ``models/model.py`` at tp = 1.  The parameter
 layout is the reference's: ``prefix`` / ``scan`` / ``tail`` blocks, where
 the per-layer metadata repeats with a short period (3 for RecurrentGemma's
 rec/rec/attn) and each ``scan`` leaf stacks the layers of one unit position
 over the units.  The reference runs the units with ``lax.scan``; the port
-runs them with a Python loop, indexing each stacked leaf (``remat`` and
-``unroll`` have no meaning there).
+runs them with a Python loop over the units, taking each stacked leaf apart
+with one ``torch.unbind`` a forward (so that under autograd its gradient is
+stacked once, not summed from one full-size gradient a unit).  ``remat``
+runs each unit's body under ``torch.utils.checkpoint`` (non-reentrant), as
+the reference wraps it in ``jax.checkpoint``; ``unroll`` has no meaning
+here.
+
+Training (:func:`lm_loss`) takes the float32 master tree and applies the
+compute cast inside the differentiated function, as the reference does, so
+gradients reach the float32 leaves.
 
 Forward modes:
   * full   — prefill: the whole sequence (b, s, d)
@@ -34,6 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import resolve_device
@@ -335,11 +343,13 @@ def embed_tokens(cfg: ModelConfig, ctx: ShardCtx, params: Dict,
 def forward(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
             *, caches: Optional[Dict] = None,
             pos: Optional[torch.Tensor] = None,
-            long_ctx: bool = False,
+            long_ctx: bool = False, remat: bool = False,
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (hidden (b, s, d), caches); ``caches``, where given, is
     updated in place.  ``params`` is the tree as loaded
-    (:func:`load_params`)."""
+    (:func:`load_params`), or cast for compute inside :func:`lm_loss`.
+    ``remat`` recomputes each unit's body in the backward (training only:
+    not with caches)."""
     metas = layer_metas(cfg, long_ctx)
     prefix, unit, n_units, tail = group_layers(cfg, metas)
     x = embed_tokens(cfg, ctx, params, ids)
@@ -353,13 +363,24 @@ def forward(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
         x = run_block(meta, params["prefix"][i], x, c)
 
     # the reference's lax.scan over units: a Python loop over the stacked
-    # leaves (a cache leaf's unit is a view, so it is written in place)
-    for u in range(n_units):
+    # leaves, each taken apart once (a cache leaf's unit is a view, so it is
+    # written in place)
+    units = [tree_map(lambda a: a.unbind(0), params["scan"][j])
+             for j in range(len(unit))] if n_units else []
+
+    def unit_body(x, u):
         for j, meta in enumerate(unit):
-            p_u = tree_map(lambda a: a[u], params["scan"][j])
+            p_u = tree_map(lambda parts: parts[u], units[j])
             c_u = (tree_map(lambda a: a[u], caches["scan"][j])
                    if caches is not None else None)
             x = run_block(meta, p_u, x, c_u)
+        return x
+
+    for u in range(n_units):
+        if remat and caches is None:
+            x = checkpoint(unit_body, x, u, use_reentrant=False)
+        else:
+            x = unit_body(x, u)
 
     for i, meta in enumerate(tail):
         c = caches["tail"][i] if caches is not None else None
@@ -399,6 +420,58 @@ def logits_of(cfg: ModelConfig, params: Dict,
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
+
+
+def lm_loss(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
+            labels: torch.Tensor, *, remat: bool = True, chunk: int = 256,
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Mean next-token cross-entropy over the float32 master tree ``params``
+    (labels < 0 are masked).  The compute cast (``model.py:272-273`` of the
+    reference) is applied here, inside the differentiated function, and the
+    head is the master head cast to the hidden state's dtype.  The sequence
+    is cut into ``s // chunk`` chunks of equal length (the tokens past the
+    last whole one count nothing, as in the reference), each chunk's float32
+    logits made and dropped in turn; ``remat`` also recomputes each chunk's
+    logits in the backward.  Returns (loss, {"xent", "aux", "tokens"})."""
+    dtype = getattr(torch, cfg.dtype)
+    cast = {k: v for k, v in params.items() if k != "head_f32"}
+    cast = tree_map(lambda t: compute_cast(t, dtype), cast)
+    x, _ = forward(cfg, ctx, cast, ids, remat=remat)
+    w = head_matrix(cfg, params).to(x.dtype)
+    b, s, d = x.shape
+    n_chunks = max(1, s // chunk)
+    cs = s // n_chunks
+    xs = x[:, :n_chunks * cs].reshape(b, n_chunks, cs, d).transpose(0, 1)
+    ls = labels[:, :n_chunks * cs].reshape(b, n_chunks, cs).transpose(0, 1)
+    vloc = w.shape[1]
+
+    def chunk_loss(xc, lc):
+        logits = matmul(xc, w).float()                       # (b, cs, V)
+        if cfg.final_softcap is not None:
+            logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+        # the max shift is a constant with respect to the gradient
+        mx = logits.amax(-1).detach()
+        lse = mx + torch.log(torch.exp(logits - mx[..., None]).sum(-1))
+        ok = (lc >= 0) & (lc < vloc)
+        ll = torch.take_along_dim(logits, lc.clamp(0, vloc - 1)[..., None],
+                                  dim=-1)[..., 0]
+        ll = torch.where(ok, ll, torch.zeros((), dtype=ll.dtype,
+                                             device=ll.device))
+        mask = (lc >= 0).to(torch.float32)
+        return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        if remat:
+            l_c, n_c = checkpoint(chunk_loss, xs[c], ls[c],
+                                  use_reentrant=False)
+        else:
+            l_c, n_c = chunk_loss(xs[c], ls[c])
+        tot, n = tot + l_c, n + n_c
+    loss = tot / torch.clamp(n, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss, {"xent": loss, "aux": aux, "tokens": n}
 
 
 def prefill(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,

@@ -1,0 +1,464 @@
+"""The port's training path against the JAX package's, on the CPU.
+
+Both packages build the reduced float32 architectures (``reduced_config``,
+``dtype="float32"``, as ``test_models_smoke.py`` builds them); the JAX
+package draws the weights (and the whole train state) and the port takes
+them over (``convert.train_state_from_reference``), so both start from one
+state and see the same numpy batches.  Tolerances: losses rtol 1e-5;
+gradients, updated parameters and optimizer and sync state rtol 2e-4, atol
+2e-5 (float32, summed in other orders); counters and triggers exactly.
+
+  * ``lm_loss`` and its gradients against ``jax.value_and_grad(lm_loss)``
+    for both architectures, remat on and off;
+  * one ``make_train_step`` step at dp = 1 against the reference's
+    ``make_train_step(mesh=None)``: metrics, params, optimizer and sync
+    state;
+  * three SGD steps (an Adam trajectory would turn ulp differences in
+    near-zero gradients into lr-sized updates);
+  * dp = 2 under bsp and under cvap(2, a value bound that fires), against
+    the reference's step composed under ``jax.vmap(axis_name="data")``;
+  * checkpoints written by either package restored by the other;
+  * ``launch.train.run`` with checkpoints; four steps on one batch lower
+    the loss.
+
+The one ``cuda`` test runs a step on the card against the JAX package on
+the CPU.
+"""
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro import optim as RO
+from repro.checkpoint import restore_checkpoint as ref_restore
+from repro.checkpoint import save_checkpoint as ref_save
+from repro.configs import ConsistencySpec as RefSpec
+from repro.configs import TrainConfig as RefTrainConfig
+from repro.configs import reduced_config as ref_reduced_config
+from repro.core import policies as RP
+from repro.core.sync import apply_and_sync as ref_apply_and_sync
+from repro.launch import steps as RS
+from repro.launch import train as ref_train
+from repro.launch.state import init_train_state as ref_init_train_state
+from repro.models import model as RM
+from repro.models.common import ShardCtx as RefCtx
+from repro.models.common import instantiate_tree
+from repro_torch import convert
+from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                    save_checkpoint)
+from repro_torch.configs import ConsistencySpec, TrainConfig, reduced_config
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.vap_accum import ops as vap_ops
+from repro_torch.launch import steps, train
+from repro_torch.models import model as M
+from repro_torch.models.common import ShardCtx, tree_leaves, tree_map, \
+    tree_paths
+from repro_torch.models.common import instantiate_tree as \
+    port_instantiate_tree
+
+ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
+LOSS_RTOL = 1e-5
+RTOL, ATOL = 2e-4, 2e-5
+# the reference's jitted grad_norm (XLA's float32 vdot on the CPU) was
+# measured 3.4e-4 off the float64 norm of its own gradients (reduced
+# RecurrentGemma), the port's 2e-8 off it: the metric is held to 1e-3
+GRAD_NORM_RTOL = 1e-3
+B, S = 2, 32
+
+
+def _cfgs(arch):
+    return (dataclasses.replace(ref_reduced_config(arch), dtype="float32"),
+            dataclasses.replace(reduced_config(arch), dtype="float32"))
+
+
+def _batch(cfg, seed, rows=B):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, (rows, S + 1)).astype(np.int32)
+    labels = ids[:, 1:].copy()
+    labels[0, :3] = -1                      # masked labels count nothing
+    return {"ids": ids[:, :-1], "labels": labels}
+
+
+def _np(a):
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _close_trees(ref_tree, port_tree, rtol=RTOL, atol=ATOL):
+    """Two trees of one layout, leaf by leaf under their paths."""
+    want = tree_paths(jax.tree.map(_np, ref_tree))
+    got = tree_paths(port_tree)
+    assert set(want) == set(got)
+    for k in want:
+        g = got[k]
+        g = g.detach().float().cpu().numpy() if isinstance(
+            g, torch.Tensor) else np.asarray(g, np.float32)
+        np.testing.assert_allclose(g, want[k], rtol=rtol, atol=atol,
+                                   err_msg=k)
+
+
+def _ref_state(rc, rt, dp, seed=0):
+    return ref_init_train_state(rc, rt, tp=1, dp=dp, key=jax.random.key(seed))
+
+
+def _port_state(ref_state, device="cpu"):
+    return convert.train_state_from_reference(
+        jax.tree.map(np.asarray, ref_state), device)
+
+
+def _close_states(rs, ps):
+    rs = jax.tree.map(np.asarray, rs)
+    pn = convert.train_state_to_numpy(ps)
+    _close_trees(rs.params, pn["params"])
+    _close_trees(rs.opt.mu, pn["opt"]["mu"])
+    _close_trees(rs.opt.nu, pn["opt"]["nu"])
+    assert np.array_equal(rs.opt.count, pn["opt"]["count"])
+    assert np.array_equal(rs.step, pn["step"])
+    for f in ("delta", "residual", "pod_pending"):
+        _close_trees(tree_paths(getattr(rs.sync, f)), pn["sync"][f])
+    for f in ("steps_since_sync", "sync_count"):
+        assert np.array_equal(getattr(rs.sync, f), pn["sync"][f]), f
+    for f in ("max_update_mag", "max_update_l2"):
+        np.testing.assert_allclose(pn["sync"][f], getattr(rs.sync, f),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def _close_metrics(rm, pm):
+    assert set(rm) == set(pm) == {"loss", "xent", "aux", "synced",
+                                  "grad_norm", "lr"}
+    for k in ("loss", "xent"):
+        np.testing.assert_allclose(float(pm[k]), float(rm[k]),
+                                   rtol=LOSS_RTOL)
+    for k in ("aux", "synced", "lr"):
+        assert float(pm[k]) == float(rm[k]), k
+    np.testing.assert_allclose(float(pm["grad_norm"]),
+                               float(rm["grad_norm"]), rtol=GRAD_NORM_RTOL)
+    for v in pm.values():
+        assert v.dtype == torch.float32 and v.dim() == 0
+
+
+# ---------------------------------------------------------------------------
+# lm_loss
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_loss_and_gradients_match_reference(arch, remat):
+    rc, pc = _cfgs(arch)
+    rp = instantiate_tree(RM.model_defs(rc, 1), jax.random.key(1))
+    batch = _batch(rc, 2)
+
+    def loss_fn(p):
+        return RM.lm_loss(rc, RefCtx(), p, jnp.asarray(batch["ids"]),
+                          jnp.asarray(batch["labels"]), remat=remat,
+                          chunk=8)
+
+    (rl, rm), rg = jax.value_and_grad(loss_fn, has_aux=True)(rp)
+    pp = convert.model_params_from_reference(jax.tree.map(np.asarray, rp),
+                                             "cpu")
+    leaves = tree_leaves(pp)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, pm = M.lm_loss(pc, ShardCtx(), pp, torch.from_numpy(batch["ids"]),
+                         torch.from_numpy(batch["labels"]).long(),
+                         remat=remat, chunk=8)
+    it = iter(torch.autograd.grad(loss, leaves))
+    pg = tree_map(lambda _: next(it), pp)
+    pl = loss.detach()
+    np.testing.assert_allclose(float(pl), float(rl), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(pm["xent"]), float(rm["xent"]),
+                               rtol=LOSS_RTOL)
+    assert float(pm["tokens"]) == float(rm["tokens"]) == B * S - 3
+    assert float(pm["aux"]) == float(rm["aux"]) == 0.0
+    _close_trees(rg, pg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_matches_no_remat_gradients(arch):
+    """As ``test_models_smoke.py`` holds the reference: checkpointing the
+    units and the loss chunks recomputes the same numbers."""
+    _, pc = _cfgs(arch)
+    gen = torch.Generator().manual_seed(3)
+    params = port_instantiate_tree(M.model_defs(pc, 1), gen, "cpu")
+    batch = _batch(pc, 4)
+    ids = torch.from_numpy(batch["ids"])
+    labels = torch.from_numpy(batch["labels"]).long()
+    grads = []
+    for remat in (True, False):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        it = iter(leaves)
+        p = tree_map(lambda _: next(it), params)
+        loss, _ = M.lm_loss(pc, ShardCtx(), p, ids, labels, remat=remat,
+                            chunk=8)
+        grads.append(torch.autograd.grad(loss, leaves))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6,
+                                   rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+
+def _tcfgs(arch, optimizer="adam", model="bsp", staleness=0, vthr=0.0,
+           lr=1e-3, warmup=2):
+    kw = dict(arch=arch, optimizer=optimizer, lr=lr, warmup_steps=warmup)
+    return (RefTrainConfig(**kw, consistency=RefSpec(model=model,
+                                                     staleness=staleness,
+                                                     value_bound=vthr)),
+            TrainConfig(**kw, consistency=ConsistencySpec(
+                model=model, staleness=staleness, value_bound=vthr)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_train_step_matches_reference(arch):
+    rc, pc = _cfgs(arch)
+    rt, pt = _tcfgs(arch)
+    rs = _ref_state(rc, rt, dp=1)
+    ps = _port_state(rs)
+    _close_states(rs, ps)
+    batch = _batch(rc, 5)
+    rs, rm = RS.make_train_step(rc, rt, mesh=None, donate=False)(
+        rs, {k: jnp.asarray(v) for k, v in batch.items()})
+    ps, pm = steps.make_train_step(pc, pt)(ps, batch)
+    _close_metrics(rm, pm)
+    _close_states(rs, ps)
+
+
+def test_three_sgd_steps_follow_the_reference():
+    arch = "mamba2-130m"
+    rc, pc = _cfgs(arch)
+    rt, pt = _tcfgs(arch, optimizer="sgd", model="cvap", staleness=1,
+                    vthr=1e-4, lr=1e-2)
+    rs = _ref_state(rc, rt, dp=1, seed=2)
+    ps = _port_state(rs)
+    rstep = RS.make_train_step(rc, rt, mesh=None, donate=False)
+    pstep = steps.make_train_step(pc, pt)
+    for i in range(3):
+        batch = _batch(rc, 10 + i)
+        rs, rm = rstep(rs, {k: jnp.asarray(v) for k, v in batch.items()})
+        ps, pm = pstep(ps, batch)
+        _close_metrics(rm, pm)
+        _close_states(rs, ps)
+
+
+def _vmapped_reference_step(rc, rt):
+    """The reference's local step under ``jax.vmap(axis_name="data")``:
+    value_and_grad(lm_loss), optimizer_update, apply_and_sync over
+    ("data",)."""
+    policy = RP.from_spec(rt.consistency)
+    lr_fn = RO.linear_warmup(rt.lr, rt.warmup_steps, RO.constant(rt.lr))
+    opt_fn = RO.optimizer_update(rt.optimizer)
+
+    def local(state, ids, labels):
+        def loss_fn(p):
+            return RM.lm_loss(rc, RefCtx(), p, ids, labels, remat=rt.remat)
+        (loss, m), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            state.params)
+        lr = lr_fn(state.step)
+        upd, opt = opt_fn(grads, state.opt, lr,
+                          weight_decay=rt.weight_decay, params=state.params)
+        params, sync, synced = ref_apply_and_sync(
+            state.params, state.sync, upd, policy, ("data",))
+        new = dataclasses.replace(state, params=params, opt=opt, sync=sync,
+                                  step=state.step + 1)
+        return new, loss, synced
+    return jax.jit(jax.vmap(local, axis_name="data"))
+
+
+@pytest.mark.parametrize("model", ["bsp", "cvap"])
+def test_two_replicas_match_reference_under_vmap(model):
+    arch = "mamba2-130m"
+    rc, pc = _cfgs(arch)
+    # the first batch twice: two steps' δ is about twice one step's |u|
+    batches = [_batch(rc, 20 + i, rows=2 * B) for i in (0, 0, 1)]
+    vthr = 0.0
+    if model == "cvap":
+        # a bound between the first step's max |u| and two steps' max |δ|,
+        # so the value trigger fires at the second step, before the clock
+        # would at the third (a probe step that never syncs measures |u|)
+        rt0, pt0 = _tcfgs(arch, optimizer="sgd", model="ssp", staleness=9,
+                          lr=1e-2, warmup=0)
+        ps0, _ = steps.make_train_step(pc, pt0)(
+            _port_state(_ref_state(rc, rt0, dp=2, seed=4)), batches[0])
+        vthr = 1.5 * float(ps0.sync.max_update_mag.max())
+    rt, pt = _tcfgs(arch, optimizer="sgd", model=model, staleness=2,
+                    vthr=vthr, lr=1e-2, warmup=0)
+    rs = _ref_state(rc, rt, dp=2, seed=4)
+    ps = _port_state(rs)
+    rstep = _vmapped_reference_step(rc, rt)
+    pstep = steps.make_train_step(pc, pt)
+    synced = []
+    for batch in batches:
+        ids = batch["ids"].reshape(2, B, S)
+        labels = batch["labels"].reshape(2, B, S)
+        rs, rloss, rsynced = rstep(rs, jnp.asarray(ids), jnp.asarray(labels))
+        ps, pm = pstep(ps, batch)
+        np.testing.assert_allclose(float(pm["loss"]),
+                                   float(np.mean(np.asarray(rloss))),
+                                   rtol=LOSS_RTOL)
+        assert bool(np.all(np.asarray(rsynced) == bool(pm["synced"])))
+        synced.append(bool(pm["synced"]))
+        _close_states(rs, ps)
+    if model == "bsp":
+        assert synced == [True, True, True]
+    else:
+        assert synced == [False, True, False], synced   # the value trigger
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+
+def test_port_checkpoint_restores_into_the_reference(tmp_path):
+    rc, pc = _cfgs("mamba2-130m")
+    rp = jax.tree.map(np.asarray, instantiate_tree(RM.model_defs(rc, 1),
+                                                   jax.random.key(5)))
+    pp = convert.model_params_from_reference(rp, "cpu")
+    pp["final_norm"]["scale"] = pp["final_norm"]["scale"] + 1.0
+    save_checkpoint(str(tmp_path), 7, pp, metadata={"arch": "x"})
+    like = jax.tree.map(jnp.zeros_like, rp)
+    tree, step = ref_restore(str(tmp_path), like)
+    assert step == 7
+    want, got = tree_paths(pp), tree_paths(jax.tree.map(np.asarray, tree))
+    assert set(want) == set(got)
+    for k in want:
+        assert np.array_equal(got[k], want[k].numpy()), k
+
+
+def test_reference_checkpoint_restores_into_the_port(tmp_path):
+    rc, pc = _cfgs("recurrentgemma-9b")
+    rp = instantiate_tree(RM.model_defs(rc, 1), jax.random.key(6))
+    ref_save(str(tmp_path), 3, rp, metadata={"arch": "y"})
+    ref_save(str(tmp_path), 12, jax.tree.map(lambda a: a * 2, rp))
+    like = tree_map(torch.zeros_like, convert.model_params_from_reference(
+        jax.tree.map(np.asarray, rp), "cpu"))
+    assert latest_step(str(tmp_path)) == 12
+    tree, step = restore_checkpoint(str(tmp_path), like, step=3)
+    assert step == 3
+    want = tree_paths(jax.tree.map(np.asarray, rp))
+    got = tree_paths(tree)
+    for k in want:
+        assert got[k].dtype == torch.float32
+        assert np.array_equal(got[k].numpy(), want[k]), k
+    bad = dict(like)
+    bad["embed"] = torch.zeros(3, 3)
+    with pytest.raises(ValueError):
+        restore_checkpoint(str(tmp_path), bad)
+    assert latest_step(str(tmp_path / "none")) is None
+
+
+def test_bfloat16_leaves_round_trip(tmp_path):
+    tree = {"a": torch.randn(4, 3).to(torch.bfloat16), "b": [torch.ones(2)]}
+    save_checkpoint(str(tmp_path), 1, tree)
+    got, _ = restore_checkpoint(str(tmp_path), tree)
+    assert got["a"].dtype == torch.bfloat16
+    assert torch.equal(got["a"], tree["a"])
+    assert torch.equal(got["b"][0], tree["b"][0])
+
+
+# ---------------------------------------------------------------------------
+# launch.train
+# ---------------------------------------------------------------------------
+
+
+def test_train_run_logs_and_checkpoints_the_synced_params(tmp_path):
+    arch = "mamba2-130m"
+    rc, pc = _cfgs(arch)
+    ref_hist = ref_train.run(RefTrainConfig(arch=arch, steps=1), rc,
+                             batch_size=2, seq_len=8, log=lambda *_: None)[1]
+    tcfg = TrainConfig(arch=arch, steps=5, log_every=2, lr=1e-3,
+                       checkpoint_dir=str(tmp_path), checkpoint_every=2,
+                       consistency=ConsistencySpec(model="ssp", staleness=3))
+    lines = []
+    state, hist = train.run(tcfg, pc, batch_size=4, seq_len=16,
+                            log=lines.append, device="cpu", replicas=2)
+    assert [h["step"] for h in hist] == [0, 2, 4] and len(lines) == 3
+    assert set(hist[0]) == set(ref_hist[0])
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert latest_step(str(tmp_path)) == 5
+    assert os.path.exists(tmp_path / "ckpt_00000002.npz")
+    got, _ = restore_checkpoint(str(tmp_path),
+                                tree_map(lambda a: a[0], state.params))
+    # δ still holds the replicas' unsynced updates: the checkpoint is
+    # replica 0's params + the sum of every δ - its own
+    assert float(state.sync.steps_since_sync[0]) > 0
+    for k, p in tree_paths(state.params).items():
+        d = state.sync.delta[k]
+        want = p[0] + ((d[0] + d[1]) - d[0])
+        assert torch.equal(tree_paths(got)[k], want), k
+    assert not torch.equal(tree_paths(got)["embed"],
+                           tree_paths(state.params)["embed"][0])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_loss_decreases_on_one_batch(arch):
+    _, pc = _cfgs(arch)
+    tcfg = TrainConfig(arch=arch, optimizer="adam", lr=1e-3, warmup_steps=0,
+                       consistency=ConsistencySpec(model="bsp"))
+    from repro_torch.launch.state import init_train_state
+    state = init_train_state(pc, tcfg, tp=1, dp=1, seed=0, device="cpu")
+    step = steps.make_train_step(pc, tcfg)
+    batch = _batch(pc, 0)
+    losses = []
+    for _ in range(4):
+        state, metrics = step(state, batch)
+        assert bool(torch.isfinite(metrics["loss"]))
+        losses.append(float(metrics["loss"]))
+    assert losses[-1] < losses[0], losses
+
+
+def test_a_mesh_and_tp_are_refused():
+    _, pc = _cfgs("mamba2-130m")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        steps.make_train_step(pc, TrainConfig(), mesh=object())
+    from repro_torch.launch.state import init_local_state
+    with pytest.raises(NotImplementedError, match="item 7"):
+        init_local_state(pc, TrainConfig(), tp=2, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_reference(cuda):
+    """Reduced Mamba2 in float32: the scan's forward and backward kernels
+    (float32 entries) and vap_accum on the card, SGD under cvap, against the
+    JAX package on the CPU."""
+    arch = "mamba2-130m"
+    rc, pc = _cfgs(arch)
+    rt, pt = _tcfgs(arch, optimizer="sgd", model="cvap", staleness=1,
+                    vthr=1e-4, lr=1e-2)
+    rs = _ref_state(rc, rt, dp=1, seed=8)
+    ps = _port_state(rs, cuda)
+    rstep = RS.make_train_step(rc, rt, mesh=None, donate=False)
+    pstep = steps.make_train_step(pc, pt)
+    ssd_ops.launches = ssd_ops.bwd_launches = vap_ops.launches = 0
+    for i in range(2):
+        batch = _batch(rc, 30 + i)
+        rs, rm = rstep(rs, {k: jnp.asarray(v) for k, v in batch.items()})
+        ps, pm = pstep(ps, batch)
+        _close_metrics(rm, pm)
+        _close_states(rs, ps)
+    n_leaves = len(tree_leaves(ps.params))
+    assert ssd_ops.bwd_launches == 2 * pc.n_layers
+    assert ssd_ops.launches == 2 * 2 * pc.n_layers      # remat: twice
+    assert vap_ops.launches == 2 * n_leaves
