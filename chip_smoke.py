@@ -200,9 +200,10 @@ Phases, each printed as one JSON line:
            synced and which trigger was due (clock, value: the step's
            max|delta| from vap_accum), then one more step under the
            profiler: the device's busy and idle share, time by kernel name,
-           ssd_scan's forward (its three kernels) and backward (its six)
-           apart.  Then one reduced float32 Mamba2 step (SGD, cvap) on the
-           card against the same step on the CPU.  Checks: every loss
+           ssd_scan's forward (its three kernels) and backward (its five
+           in bfloat16) apart.  Then one reduced float32 Mamba2 step
+           (SGD, cvap) on the card against the same step on the CPU.
+           Checks: every loss
            finite and the mean of the last two below the first; the VAP
            invariant after every step; a step that synced and one that did
            not; ssd_scan's forward 48 and backward 24 launches a replica
@@ -272,7 +273,10 @@ Phases, each printed as one JSON line:
            (padding, g > 1, an initial state, dfinal, both dtypes) against
            its plain version (autograd through ssd_chunked in float32 on
            the card), per output to 1e-4 of its largest magnitude + 1e-3
-           relative, plus 2^-6 relative where the output is bfloat16;
+           relative, plus 2^-6 relative where the output is bfloat16 (the
+           train call also with its device time a call by kernel from the
+           train phase's profiled step, every bfloat16 case with its
+           kernels' registers and shared memory);
            vap_accum also at the train path's largest leaf.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and as the
@@ -2561,10 +2565,17 @@ TRAIN_REDUCED = {"global_batch": f"{TRAIN_REPLICAS} replicas x {TRAIN_ROWS} "
 # the ssd_scan backward against its plain version (float32 autograd through
 # ssd_chunked on the card): per output 1e-4 max|plain| + 1e-3 |plain|, plus
 # 2^-6 |plain| where the output is bfloat16 (both rounded to bfloat16)
-SSD_BWD_ENTRY = "float32 pipes: chunk masses, state passes, 32-row tiles, " \
-    "dt, group sums, dA (six launches)"
-SSD_BWD_KERNEL = re.compile(r"bwd_(chunk_state|state_pass|chunk|dt|"
-                            r"group_sum|dA)_kernel")
+SSD_BWD_ENTRY = {
+    torch.bfloat16: "wgmma, float32 operands split into bf16 hi + lo: both "
+                    "chunk masses, the state passes (8 chunks in flight), "
+                    "64-step tiles per (side, tile, chunk, group) walking "
+                    "the group's heads (C B^T once, dB / dC summed on chip, "
+                    "TMA), dt, dA (five launches)",
+    torch.float32: "float32 pipes: chunk masses, state passes, 32-row "
+                   "tiles, dt, group sums, dA (six launches)"}
+SSD_BWD_KERNEL = re.compile(r"bwd_(mass_bf16|pass_bf16|chunk_bf16|"
+                            r"chunk_state|state_pass|chunk|dt|group_sum|dA)"
+                            r"_kernel")
 TRAIN_STEP_RTOL, TRAIN_STEP_ATOL = 2e-4, 2e-5
 
 
@@ -2588,8 +2599,10 @@ def _ssd_bwd_close(got, want):
 
 def check_ssd_bwd(dev, x, dt, A, B, C, chunk, initial_state, dy, dfinal):
     """The backward kernel against its plain version on the card; times
-    both.  The bound counts the products the function needs once, at the
-    bf16 tensor-core rate, as the forward's row counts its own: over the
+    both.  A bfloat16 case carries the bfloat16 kernels' registers, spills,
+    shared memory and blocks a multiprocessor.  The bound counts the
+    products the function needs once, at the bf16 tensor-core rate, as the
+    forward's row counts its own: over the
     pairs s <= t of each chunk's real steps, C B^T, dC and dB once per
     (batch, group) (the heads' dy xdt^T masks summed first) and dy xdt^T
     and dxdt once per (batch, head); per step and head the four state
@@ -2615,6 +2628,9 @@ def check_ssd_bwd(dev, x, dt, A, B, C, chunk, initial_state, dy, dfinal):
     big = x.numel() > 10_000_000
     ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args), reps=10 if big else REPS)
     plain_ms = cuda_ms(lambda: ref.ssd_scan_bwd(*args), reps=3, warmup=1)
+    extra = {}
+    if x.dtype == torch.bfloat16:
+        extra["kernel_attrs"] = ops.bwd_bf16_attrs(dev)
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     cs = min(chunk, l)
@@ -2635,17 +2651,19 @@ def check_ssd_bwd(dev, x, dt, A, B, C, chunk, initial_state, dy, dfinal):
                                    is not None else "")
                      + (" dfinal" if dfinal is not None else "")
                      + ("" if x.is_contiguous() else " column slices"),
-            "entry": SSD_BWD_ENTRY, "tflops": flops / ms / 1e9,
+            "entry": SSD_BWD_ENTRY[x.dtype], "tflops": flops / ms / 1e9,
             "bound_share": bound_ms / ms, "max_abs_err": err,
             "tolerance": "1e-4 max|plain| + 1e-3 |plain| (+ 2^-6 |plain| "
                          "for a bfloat16 output)",
             "same_bits_twice": same, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            **extra}
 
 
 def ssd_bwd_stress_cases(dev):
-    """Padding, g > 1, an initial state and dfinal, column slices, in both
-    dtypes."""
+    """Padding, g > 1 (up to 12 heads a group), an initial state and
+    dfinal, column slices, l a multiple of neither the 64-step tile nor the
+    chunk, partial tiles (p 32, n 64), in both dtypes."""
     g = torch.Generator(device=dev).manual_seed(11)
 
     def randn(*shape):
@@ -2657,7 +2675,10 @@ def ssd_bwd_stress_cases(dev):
                 (2, 37, 4, 1, 8, 6, 8, False, True),
                 (1, 300, 4, 2, 64, 128, 256, True, True),
                 (2, 100, 6, 3, 16, 32, 32, True, False),
-                (1, 5, 2, 1, 3, 4, 16, False, True)):
+                (1, 5, 2, 1, 3, 4, 16, False, True),
+                (1, 300, 24, 2, 64, 128, 256, True, True),
+                (1, 1000, 4, 1, 64, 128, 256, False, True),
+                (2, 200, 4, 1, 32, 64, 128, True, False)):
             xbc = randn(b, l, h * p + 2 * gr * n).to(dtype)
             x = xbc[..., :h * p].reshape(b, l, h, p)
             B = xbc[..., h * p:h * p + gr * n].reshape(b, l, gr, n)
@@ -2879,6 +2900,10 @@ def run_train_phase(dev, seed, smi):
                          "ssd_scan_backward_device_s": bwd_s,
                          "ssd_scan_backward_by_name": {
                              _short(k): v for k, v in bwd_by_name.items()},
+                         "ssd_scan_backward_ms_per_call_by_name": {
+                             _short(k): v * 1e3 / max(
+                                 prof_launches["ssd_scan_bwd"], 1)
+                             for k, v in bwd_by_name.items()},
                          "elementwise_device_s": sum(
                              v for k, v in device_s.items()
                              if ELEMENTWISE.search(k)),
@@ -2977,7 +3002,8 @@ def main() -> None:
     for name in ("flash_attention", "rglru_scan"):
         launches[name] = serve_launches["recurrentgemma-9b"][name]
     launches["ssd_scan"] = serve_launches["mamba2-130m"]["ssd_scan"]
-    train_launches, first_bwd, _ = run_train_phase(dev, args.seed, smi)
+    train_launches, first_bwd, train_line = run_train_phase(dev, args.seed,
+                                                            smi)
     launches["ssd_scan_bwd"] = train_launches["ssd_scan_bwd"]
 
     # first the paths' shapes (the table's rows), then stress shapes: a
@@ -3038,6 +3064,10 @@ def main() -> None:
     # vap_accum at the train path's largest leaf (the embedding, stacked)
     cases["ssd_scan_bwd"] = ([check_ssd_bwd(dev, *first_bwd[0])]
                              + ssd_bwd_stress_cases(dev))
+    # the train call's device time by kernel, from the train phase's
+    # profiled step (a profile this late in the process loses events)
+    cases["ssd_scan_bwd"][0]["device_ms_by_kernel"] = train_line[
+        "profiled"]["ssd_scan_backward_ms_per_call_by_name"]
     del first_bwd
     torch.cuda.empty_cache()
     train_vap = check_vap_accum(dev, (TRAIN_REPLICAS, 50_280, 768),

@@ -337,19 +337,6 @@ struct Smem {
 // marks the end of the block's key tiles
 constexpr int kMasked = 0, kWhole = 1, kEnd = 2;
 
-// one box of a 4-D tensor map (d, heads, seq, batch) into shared memory,
-// completing on ``bar``; coordinates past the tensor read as zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle; byte offsets: ``lbo``
 // between swizzle atoms along M/N (MN-major operands only), ``sbo`` between
 // groups of 8 rows
@@ -449,7 +436,7 @@ __device__ __forceinline__ void produce(
   if (lane == 0) {
     bar_arrive_tx(bar_q, S::kBoxes * S::kQBox);
     for (int c = 0; c < static_cast<int>(S::kBoxes); ++c)
-      tma_load(base + c * S::kQBox, tq, bar_q, c * kBox, qhead, q0, bi);
+      tma_load_4d(base + c * S::kQBox, tq, bar_q, c * kBox, qhead, q0, bi);
   }
   int stage = 0;
   uint32_t phase = 0;
@@ -496,9 +483,9 @@ __device__ __forceinline__ void produce(
         bar_arrive_tx(full, 2 * S::kTile);
         const uint32_t ks = base + S::kK + 2 * stage * S::kTile;
         for (int c = 0; c < static_cast<int>(S::kBoxes); ++c) {
-          tma_load(ks + c * S::kKVBox, tk, full, c * kBox, kh, k0, bi);
-          tma_load(ks + S::kTile + c * S::kKVBox, tv, full, c * kBox, kh, k0,
-                   bi);
+          tma_load_4d(ks + c * S::kKVBox, tk, full, c * kBox, kh, k0, bi);
+          tma_load_4d(ks + S::kTile + c * S::kKVBox, tv, full, c * kBox, kh,
+                      k0, bi);
         }
       } else {
         bar_arrive(full);

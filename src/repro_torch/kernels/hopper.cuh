@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarrier
-// waits and arrivals, TMA bulk tensor copies between device memory and
-// shared memory, and the lookup of cuTensorMapEncodeTiled in the libcuda
-// that the process has loaded (the kernels' library links no libcuda of its
-// own).  Included by each kernel.cu that feeds a ring with TMA.
+// waits and arrivals, TMA bulk copies (tensor boxes and plain runs of bytes)
+// between device memory and shared memory, and the lookup of
+// cuTensorMapEncodeTiled in the libcuda that the process has loaded (the
+// kernels' library links no libcuda of its own).  Included by each kernel
+// source that feeds a ring with TMA.
 #pragma once
 
 #include <cstdint>
@@ -58,6 +59,31 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// one box of a 4-D tensor map into shared memory, completing on ``bar``;
+// coordinates past the tensor read as zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) contiguous bytes into shared memory,
+// completing on ``bar``; both addresses 16-byte aligned
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -9,14 +9,16 @@ float32-pipe kernel; neither falls back to the other.
 
 On the card, where an input requires grad under grad mode, ``ssd_scan`` is
 a ``torch.autograd.Function``: its backward is :func:`ssd_scan_bwd`, the
-kernels of ``backward.cu`` (both dtypes, float32 arithmetic); otherwise it
-launches the forward alone.  On the CPU it is ``ref.ssd_chunked``, which
-autograd differentiates as it is.
+kernels of ``backward.cu``, again by dtype (bfloat16 five launches on the
+tensor cores with float32 operands split, float32 six on the float32
+pipes); otherwise it launches the forward alone.  On the CPU it is
+``ref.ssd_chunked``, which autograd differentiates as it is.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from typing import Optional, Tuple
 
@@ -39,7 +41,14 @@ _ARGS = {"ssd_scan_f32": [_INT] + [_P] * 8 + [_I64] * 11 + [_P],
          "ssd_chunk_state_bf16": [_INT] + [_P] * 6 + [_I64] * 11 + [_INT, _P],
          "ssd_state_pass": [_INT] + [_P] * 5 + [_I64] * 6 + [_P],
          "ssd_chunk_scan_bf16": [_INT] + [_P] * 7 + [_I64] * 11 + [_INT, _P],
-         "ssd_scan_bwd": [_INT, _INT] + [_P] * 22 + [_I64] * 11 + [_P]}
+         "ssd_scan_bwd_f32": [_INT] + [_P] * 22 + [_I64] * 11 + [_P],
+         "ssd_scan_bwd_bf16": [_INT] + [_P] * 25 + [_I64] * 11 + [_INT, _P],
+         "ssd_scan_bwd_bf16_attrs": [_INT, _P]}
+# the bfloat16 backward's kernels, in launch order (the float32 entry's are
+# bwd_chunk_state, bwd_state_pass, bwd_chunk, bwd_group_sum; both end with
+# bwd_dt and bwd_dA)
+BWD_BF16_KERNELS = ("bwd_mass_bf16_kernel", "bwd_pass_bf16_kernel",
+                    "bwd_chunk_bf16_kernel")
 
 ssd_step = ref.ssd_step
 
@@ -237,26 +246,77 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         B, C = B.contiguous(), C.contiguous()
     dt, A, dy = dt.contiguous(), A.contiguous(), dy.contiguous()
     dfin = None if dfinal is None else dfinal.contiguous()
+    # the state passes read and write the states 16 bytes a time
+    init, dfin = (None if t is None else t.clone() if t.data_ptr() % 16 else t
+                  for t in (init, dfin))
     cs = min(chunk, l)
     nc = -(-l // cs)
-    nblk = -(-(p * n) // 256)
-    acum = torch.empty((b, h, nc * cs), dtype=f32, device=dev)
-    states = torch.empty((2, b, nc, h, p, n), dtype=f32, device=dev)
-    sdot = torch.empty((b, nc, h, nblk), dtype=f32, device=dev)
-    rqx = torch.empty((3, b, h, nc * cs), dtype=f32, device=dev)
-    dBh = torch.empty((2, b, l, h, n), dtype=f32, device=dev)
-    dA_part = torch.empty((b, nc, h), dtype=f32, device=dev)
-    _launch(dev, "ssd_scan_bwd", int(x.dtype == torch.bfloat16), _ptr(x),
-            _ptr(dt), _ptr(A), _ptr(B), _ptr(C), _ptr(init), _ptr(dy),
-            _ptr(dfin), _ptr(dx), _ptr(ddt), _ptr(dA), _ptr(dB), _ptr(dC),
-            _ptr(dinit), _ptr(acum), _ptr(states[0]), _ptr(states[1]),
-            _ptr(sdot), _ptr(rqx), _ptr(dBh[0]), _ptr(dBh[1]),
-            _ptr(dA_part), b, l, h, g, p, n, cs, x.stride(0), x.stride(1),
-            B.stride(0), B.stride(1))
+    strides = (x.stride(0), x.stride(1), B.stride(0), B.stride(1))
+    common = (_ptr(x), _ptr(dt), _ptr(A), _ptr(B), _ptr(C), _ptr(init),
+              _ptr(dy), _ptr(dfin), _ptr(dx), _ptr(ddt), _ptr(dA), _ptr(dB),
+              _ptr(dC), _ptr(dinit))
+    if x.dtype == torch.bfloat16:
+        # float32 scratch in one allocation: a and dt (chunk rows of 256,
+        # the kernel's widest chunk), the state masses, C B^T tiles, the
+        # tiles' dB / dC over their pairs, <dS_out, S_in> partials, the d a
+        # planes, dA partials; the split states in another
+        nt = -(-cs // 64)
+        shapes = {"acum": (2, b, h, nc, MAX_CHUNK),
+                  "states": (2, b, nc, h, p, n),
+                  "cbt": (b, g, nc, nt, nt, 64 * 64),
+                  "acc": (b, g, nc, 2, nt, 64 * MAX_STATE),
+                  "sdot": (b, nc, h, -(-(p * n) // 1024)),
+                  "rqx": (4, b, h, nc, MAX_CHUNK),
+                  "dA_part": (b, nc, h)}
+        # each part starts 16-byte aligned
+        sizes = [-(-math.prod(v) // 4) * 4 for v in shapes.values()]
+        flat = torch.empty(sum(sizes), dtype=f32, device=dev)
+        part = dict(zip(shapes, torch.split(flat, sizes)))
+        planes = torch.empty((2, b, nc, h, 2, p, n), dtype=x.dtype,
+                             device=dev)
+        pn, cnt = p * n, b * nc * h * 2
+        # 16-byte copies need whole rows of 8 bf16 on 16-byte boundaries
+        vec = int(all(v % 8 == 0 for v in (p, n) + strides)
+                  and all(t.data_ptr() % 16 == 0 for t in (x, B, C, dy)))
+        ptr = {k: t.data_ptr() for k, t in part.items()}
+        _launch(dev, "ssd_scan_bwd_bf16", *common, ptr["acum"],
+                ptr["acum"] + 4 * b * h * nc * MAX_CHUNK, ptr["states"],
+                ptr["states"] + 4 * b * nc * h * pn, _ptr(planes),
+                _ptr(planes) + 2 * cnt * pn, ptr["cbt"], ptr["acc"],
+                ptr["sdot"], ptr["rqx"], ptr["dA_part"], b, l, h, g, p, n,
+                cs, *strides, vec)
+    else:
+        nblk = -(-(p * n) // 256)
+        acum = torch.empty((b, h, nc * cs), dtype=f32, device=dev)
+        states = torch.empty((2, b, nc, h, p, n), dtype=f32, device=dev)
+        sdot = torch.empty((b, nc, h, nblk), dtype=f32, device=dev)
+        rqx = torch.empty((3, b, h, nc * cs), dtype=f32, device=dev)
+        dBh = torch.empty((2, b, l, h, n), dtype=f32, device=dev)
+        dA_part = torch.empty((b, nc, h), dtype=f32, device=dev)
+        _launch(dev, "ssd_scan_bwd_f32", *common, _ptr(acum),
+                _ptr(states[0]), _ptr(states[1]), _ptr(sdot), _ptr(rqx),
+                _ptr(dBh[0]), _ptr(dBh[1]), _ptr(dA_part), b, l, h, g, p, n,
+                cs, *strides)
     global bwd_launches
     with _COUNT_LOCK:
         bwd_launches += 1
     return dx, ddt, dA, dB, dC, dinit
+
+
+def bwd_bf16_attrs(device: torch.device) -> dict:
+    """Each of the bfloat16 backward's own kernels: registers a thread,
+    spilled (local) bytes a thread, static and dynamic shared memory a
+    block, and blocks a multiprocessor, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * (5 * len(BWD_BF16_KERNELS)))()
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    err = _entry("ssd_scan_bwd_bf16_attrs")(index, out)
+    if err:
+        raise RuntimeError(f"ssd_scan: kernel attributes: CUDA error {err}")
+    keys = ("registers", "local_bytes", "static_smem_bytes",
+            "dynamic_smem_bytes", "blocks_per_sm")
+    return {name: dict(zip(keys, out[5 * k:5 * k + 5]))
+            for k, name in enumerate(BWD_BF16_KERNELS)}
 
 
 def _packed(t: torch.Tensor) -> torch.Tensor:

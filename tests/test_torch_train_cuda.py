@@ -37,8 +37,12 @@ CASES = [
     (2, 24, 4, 2, 8, 4, 8, True, False, True),
     (1, 5, 2, 1, 3, 4, 16, False, True, True),
     (1, 300, 4, 4, 64, 128, 256, True, True, False),   # the full tiles
+    (1, 300, 24, 2, 64, 128, 256, True, True, True),   # 12 heads a group
+    (1, 1000, 4, 1, 64, 128, 256, False, True, True),  # l % 64, l % cs != 0
+    (2, 200, 4, 1, 32, 64, 128, True, False, False),   # p 32, n 64 tiles
     (2, 600, 24, 1, 64, 128, 256, False, False, True),  # Mamba2's layout
 ]
+MAMBA2 = CASES[-1]
 
 
 @pytest.fixture
@@ -101,7 +105,7 @@ def test_backward_kernel_matches_plain(case, dtype, cuda):
 
 
 def test_backward_kernel_is_the_same_run_to_run(cuda):
-    args = _inputs(CASES[-1], torch.bfloat16, cuda, seed=2)
+    args = _inputs(MAMBA2, torch.bfloat16, cuda, seed=2)
     first = ops.ssd_scan_bwd(*args)
     second = ops.ssd_scan_bwd(*args)
     for a, b in zip(first, second):
