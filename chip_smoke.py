@@ -420,25 +420,34 @@ def check_ps_apply(dev, R, C, N, dtype, seed, sentinels, one_row=False):
             "unique_rows": int(touched)}
 
 
-def profiled_device_ms(fn, count, match=None, reps=REPS) -> float:
+def profiled_device_ms(fn, count, match=None, reps=REPS,
+                       windows=3) -> float:
     """Device time of one fn() call from torch.profiler: the device events
     of ``reps`` calls (those whose name holds ``match``, else all) summed
     and divided by ``reps``.  ``count(n_events)`` says whether the window
-    holds every event it should; the smoke fails if it does not."""
+    holds every event it should.  A later window in one process now and
+    then drops a device event, so an incomplete window is discarded and
+    another taken, up to ``windows`` in all; only a complete window is
+    measured, and the smoke fails if none is."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA
-          and (match is None or match in e.name)]
-    if not count(len(us)):
-        raise AssertionError(f"profiler: {len(us)} device events matching "
-                             f"{match!r} in {reps} calls")
-    return sum(us) / reps / 1e3
+    seen = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and (match is None or match in e.name)]
+        if count(len(us)):
+            return sum(us) / reps / 1e3
+        seen.append(len(us))
+        print(f"profiler: window of {len(us)} device events matching "
+              f"{match!r} in {reps} calls discarded", file=sys.stderr)
+    raise AssertionError(f"profiler: {seen} device events matching "
+                         f"{match!r} in {reps} calls, window after window")
 
 
 def check_topk_mag(n, seed):
