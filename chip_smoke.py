@@ -211,6 +211,32 @@ Phases, each printed as one JSON line:
            leaf a step; no call of either plain version; the card's step
            within loss rtol 1e-5 and params / delta rtol 2e-4, atol 2e-5
            of the CPU's.
+  train_rg RecurrentGemma-9B trained at full width and reduced depth: d
+           4,096, RG-LRU width 4,096, MQA 16 x 256, window 2,048, d_ff
+           12,288, vocab 256,000, 5 of its 38 layers (one rec/rec/attn unit
+           and the model's own two-layer tail, whose float32 1-D leaves
+           promote the residual stream to float32), weights drawn on the
+           card from --seed, float32 masters, bfloat16 compute; one replica
+           (the reference's mesh=None step: apply_and_sync over no axis) on
+           2 SyntheticLM sequences of 4,096 tokens a step, 6 Adam steps
+           under cvap(2, 1.8e-3), remat on.  The launch counters set to 0
+           just before the 6 steps and read after each; the plain versions
+           of rglru_scan, flash_attention and their backwards wrapped here
+           to count calls.  Prints each step's wall, tokens a second, peak
+           device memory, the losses, which steps synced on which trigger,
+           each step's launches by entry, the backwards' first calls'
+           shapes, then one more step under the profiler: the device's busy
+           and idle share, time by kernel name, each kernel's forward and
+           backward apart.  Then two reduced float32 RecurrentGemma steps
+           (SGD, cvap) on the card against the same steps on the CPU.
+           Checks: every loss finite and the last below the first; the VAP
+           invariant after every step; a step that synced; a step's
+           launches rglru_bf16 4 and rglru_f32 2 (the unit's two RG-LRU
+           layers run twice under remat, the tail's once),
+           rglru_bwd_bf16 2, rglru_bwd_f32 2, flash_attention 2 and its
+           backward 1, vap_accum one a leaf; no call of a plain version;
+           the card's step within the train phase's tolerances of the
+           CPU's.
   kernels  each CUDA kernel against its plain PyTorch version, at the
            shapes the paths gave it (ps_apply's median call per table, no
            sentinel rows, as the shard sends none; MF's too; replica
@@ -277,7 +303,23 @@ Phases, each printed as one JSON line:
            train call also with its device time a call by kernel from the
            train phase's profiled step, every bfloat16 case with its
            kernels' registers and shared memory);
-           vap_accum also at the train path's largest leaf.
+           vap_accum also at the train path's largest leaf.  The
+           rglru_scan backward at the train_rg path's first call in each
+           dtype (2 x 4,096 x 4,096: the unit's bfloat16, the tail's
+           float32) and at stress shapes (an initial state and dh_last, w
+           50, l 1, the sqrt clamp's region, 333 steps at w 4,096; both
+           dtypes), and its bare recurrence's entry; the flash_attention
+           backward at the path's first call (bfloat16, 2 x 4,096 x 1 x 16
+           x 256, window 2,048) and at stress shapes (softcap, G 1-4, dv !=
+           dh, empty key slots and rows that see no key, ragged sq / skv,
+           no window; both dtypes): each against its plain version on the
+           card (rglru: 1e-4 max|plain| + 1e-3 |plain|, + 2^-6 |plain| for
+           a bfloat16 output; flash: the same in float32, 1e-2 max|plain| +
+           2^-6 |plain| in bfloat16), run twice for the same bits, with the
+           library's time where one call computes it (flash: the backward
+           of scaled_dot_product_attention with the window as a boolean
+           mask) and its bound.  The flash forward's cases also carry its
+           time when it writes the rows' log-sum-exp (ms_with_lse).
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure raises: the exit code
@@ -648,6 +690,8 @@ def check_flash(dev, q, k, v, q_pos, k_pos, window=None, cap=None,
     skv, dv = k.shape[1], v.shape[-1]
     big = q.numel() > 10_000_000
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, q_pos, k_pos, **kw))
+    ms_with_lse = cuda_ms(lambda: ops.flash_attention(
+        q, k, v, q_pos, k_pos, **kw, return_lse=True))
     plain_ms = cuda_ms(lambda: ref.attention(q, k, v, q_pos, k_pos, **kw),
                        reps=5 if big else REPS, warmup=1 if big else 3)
     mask = k_pos[None, :].long() <= q_pos[:, None].long()
@@ -672,7 +716,8 @@ def check_flash(dev, q, k, v, q_pos, k_pos, window=None, cap=None,
             "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
             "max_abs_err": err, "mean_abs_plain": mean_abs_want,
             "tolerance": tol[q.dtype],
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "ms_with_lse": ms_with_lse, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "library": "scaled_dot_product_attention(attn_mask=window mask, "
                        "enable_gqa=True)" if cap is None else None,
             "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
@@ -965,6 +1010,11 @@ def device_seconds(prof) -> dict:
 
 KERNELS = ("ps_apply", "topk_mag", "vap_accum", "flash_attention",
            "ssd_scan", "rglru_scan")
+# the backward kernels: (name, the forward's kernel, its wrapper's function)
+BACKWARDS = (("ssd_scan_bwd", "ssd_scan", "ssd_scan_bwd"),
+             ("rglru_scan_bwd", "rglru_scan", "rglru_bwd"),
+             ("flash_attention_bwd", "flash_attention",
+              "flash_attention_bwd"))
 SITE = "site:"
 
 
@@ -1042,7 +1092,8 @@ class Sites:
 def path_run(dev, keep_first=False):
     """Drive one path inside the block: every kernel's launch counter set to
     0 just before and read just after (into ``run["launches"]``; the
-    ssd_scan backward's as ``"ssd_scan_bwd"``), the shape
+    backwards' under their names in BACKWARDS, rglru_scan's also by entry
+    in ``run["rglru_scan_by_entry"]``), the shape
     of every call noted (``run["calls"]``; vap_accum's with the max it
     returned; with ``keep_first``, an LLM kernel's first call in each dtype
     keeps its inputs in ``run["first"][(kernel, dtype)]``), peak device
@@ -1090,28 +1141,34 @@ def path_run(dev, keep_first=False):
                 "vap_accum": vap_accum_}
     for k in KERNELS:
         setattr(mods[k], attrs[k], wrappers.get(k) or noting(k))
-    # ssd_scan's backward: its own counter, its calls noted as the others'
-    orig_bwd = ssd_ops.ssd_scan_bwd
-    orig["ssd_scan_bwd"] = orig_bwd
-    run["calls"]["ssd_scan_bwd"] = []
-    ssd_ops.ssd_scan_bwd = noting("ssd_scan_bwd")
+    # the backwards: each its own counter, its calls noted as the others'
+    for name, mod, attr in BACKWARDS:
+        orig[name] = getattr(mods[mod], attr)
+        run["calls"][name] = []
+        setattr(mods[mod], attr, noting(name))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for m in mods.values():
         m.launches = 0
-    ssd_ops.bwd_launches = 0
+    for _, mod, _ in BACKWARDS:
+        mods[mod].bwd_launches = 0
     apply_ops.launches_by_site.clear()
-    for e in rg_ops.launches_by_entry:
-        rg_ops.launches_by_entry[e] = 0
+    for by_entry in (rg_ops.launches_by_entry, rg_ops.bwd_launches_by_entry):
+        for e in by_entry:
+            by_entry[e] = 0
     try:
         yield run
         torch.cuda.synchronize()
     finally:
         for k in KERNELS:
             setattr(mods[k], attrs[k], orig[k])
-        ssd_ops.ssd_scan_bwd = orig_bwd
+        for name, mod, attr in BACKWARDS:
+            setattr(mods[mod], attr, orig[name])
         run["launches"] = {k: m.launches for k, m in mods.items()}
-        run["launches"]["ssd_scan_bwd"] = ssd_ops.bwd_launches
+        for name, mod, _ in BACKWARDS:
+            run["launches"][name] = mods[mod].bwd_launches
+        run["rglru_scan_by_entry"] = {**rg_ops.launches_by_entry,
+                                      **rg_ops.bwd_launches_by_entry}
         run["ps_apply_by_site"] = dict(apply_ops.launches_by_site)
 
 
@@ -2571,9 +2628,45 @@ TRAIN_REDUCED = {"global_batch": f"{TRAIN_REPLICAS} replicas x {TRAIN_ROWS} "
                                  f"sequences = {TRAIN_REPLICAS * TRAIN_ROWS} "
                                  f"of train_4k's 256",
                  "steps": f"{TRAIN_STEPS}"}
-# the ssd_scan backward against its plain version (float32 autograd through
-# ssd_chunked on the card): per output 1e-4 max|plain| + 1e-3 |plain|, plus
-# 2^-6 |plain| where the output is bfloat16 (both rounded to bfloat16)
+# the backwards against their plain versions on the card, per output:
+# rglru_scan's is the plain version's arithmetic op for op on the card (dx,
+# dr, di the same bits), dΛ sums (b, l) in another order: 1e-4 max|plain| +
+# 1e-3 |plain|, plus 2^-6 |plain| where the output is bfloat16 (both
+# rounded to bfloat16).  flash_attention's float32 entry: the same; its
+# bfloat16 entry reads D = rowsum(dO O) from the forward's bfloat16 output
+# (2^-9 relative), which the float32 plain version does not round, and the
+# output is rounded to bfloat16: 1e-2 max|plain| + 2^-6 |plain| (the least
+# absolute factor that passed was at most 3.3e-3 on an H100 at its stress
+# cases and 1.6e-3 at the train call; each case prints its own).
+BWD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-4, 1e-3 + 2**-6)}
+FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-2, 2**-6)}
+
+
+def _bwd_close(got, want, tol):
+    """(ok, max abs err, the least absolute factor that would pass) of a
+    backward's outputs against the plain version's: |got - want| <= a
+    max|want| + r |want| per output, (a, r) = tol[dtype]."""
+    ok, err, need = True, 0.0, 0.0
+    for g, w in zip(got, want):
+        if w is None:
+            ok &= g is None
+            continue
+        a, r = tol[g.dtype]
+        g32, w32 = g.float(), w.float()
+        d = (g32 - w32).abs()
+        top = float(w32.abs().max())
+        ok &= bool((d <= a * top + r * w32.abs()).all()) and g.dtype == w.dtype
+        err = max(err, float(d.max()))
+        if top > 0:
+            need = max(need, float((d - r * w32.abs()).max()) / top)
+    return ok, err, need
+
+
+def _same_bits(a, b):
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
 SSD_BWD_ENTRY = {
     torch.bfloat16: "wgmma, float32 operands split into bf16 hi + lo: both "
                     "chunk masses, the state passes (8 chunks in flight), "
@@ -2586,24 +2679,6 @@ SSD_BWD_KERNEL = re.compile(r"bwd_(mass_bf16|pass_bf16|chunk_bf16|"
                             r"chunk_state|state_pass|chunk|dt|group_sum|dA)"
                             r"_kernel")
 TRAIN_STEP_RTOL, TRAIN_STEP_ATOL = 2e-4, 2e-5
-
-
-def _ssd_bwd_close(got, want):
-    """(ok, max abs err) of the backward's outputs (dx, ddt, dA, dB, dC,
-    dinit) against the plain version's."""
-    ok, err = True, 0.0
-    for g, w in zip(got, want):
-        if w is None:
-            ok &= g is None
-            continue
-        g32, w32 = g.float(), w.float()
-        tol = 1e-4 * float(w32.abs().max()) + 1e-3 * w32.abs()
-        if g.dtype == torch.bfloat16:
-            tol = tol + 2.0 ** -6 * w32.abs()
-        d = (g32 - w32).abs()
-        ok &= bool((d <= tol).all()) and g.dtype == w.dtype
-        err = max(err, float(d.max()))
-    return ok, err
 
 
 def check_ssd_bwd(dev, x, dt, A, B, C, chunk, initial_state, dy, dfinal):
@@ -2626,14 +2701,12 @@ def check_ssd_bwd(dev, x, dt, A, B, C, chunk, initial_state, dy, dfinal):
     got = ops.ssd_scan_bwd(*args)
     want = ref.ssd_scan_bwd(*args)
     torch.cuda.synchronize()
-    ok, err = _ssd_bwd_close(got, want)
+    ok, err, _ = _bwd_close(got, want, BWD_TOL)
     if not ok:
         raise AssertionError(f"ssd_scan_bwd {tuple(x.shape)} {x.dtype}: "
                              f"kernel != plain (max abs err {err})")
-    again = ops.ssd_scan_bwd(*args)
-    same = all((a is None and b is None) or torch.equal(a, b)
-               for a, b in zip(got, again))
-    del want, again
+    same = _same_bits(got, ops.ssd_scan_bwd(*args))
+    del want
     big = x.numel() > 10_000_000
     ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args), reps=10 if big else REPS)
     plain_ms = cuda_ms(lambda: ref.ssd_scan_bwd(*args), reps=3, warmup=1)
@@ -2702,21 +2775,23 @@ def ssd_bwd_stress_cases(dev):
     return out
 
 
-def train_step_card_vs_cpu(dev, seed):
-    """Two reduced float32 Mamba2 steps (SGD, cvap) on the card against the
-    same steps on the CPU, from one state and batch.  The value bound is
-    out of reach and the staleness 1, so step 1 does not sync and leaves
-    δ = -lr g on each replica, the step's gradient itself: it is held at
-    the gradients' tolerance.  Step 2 syncs on the clock, and the params
-    after it are held at the params' tolerance."""
+def train_step_card_vs_cpu(dev, seed, arch=TRAIN_ARCH):
+    """Two reduced float32 steps of ``arch`` (SGD, cvap) on the card against
+    the same steps on the CPU, from one state and batch: on the card the
+    float32 entries of its kernels and of their backwards, on the CPU the
+    plain versions.  The value bound is out of reach and the staleness 1,
+    so step 1 does not sync and leaves δ = -lr g on each replica, the
+    step's gradient itself: it is held at the gradients' tolerance.  Step 2
+    syncs on the clock, and the params after it are held at the params'
+    tolerance."""
     from repro_torch.configs import ConsistencySpec, TrainConfig, \
         reduced_config
     from repro_torch.launch import steps
     from repro_torch.launch.state import init_train_state, map_state
     from repro_torch.models.common import tree_paths
 
-    cfg = dataclasses.replace(reduced_config(TRAIN_ARCH), dtype="float32")
-    tcfg = TrainConfig(arch=TRAIN_ARCH, optimizer="sgd", lr=1e-2,
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    tcfg = TrainConfig(arch=arch, optimizer="sgd", lr=1e-2,
                        warmup_steps=0, consistency=ConsistencySpec(
                            model="cvap", staleness=1, value_bound=1e3))
     cpu = init_train_state(cfg, tcfg, tp=1, dp=2, seed=seed, device="cpu")
@@ -2769,6 +2844,44 @@ def train_step_card_vs_cpu(dev, seed):
                          f"{TRAIN_STEP_ATOL}; synced [0, 1] on both"}
 
 
+def _train_steps(state, step_fn, it, n_steps, run, policy, counters=None):
+    """``n_steps`` steps of ``step_fn`` on batches from ``it`` inside the
+    path_run ``run``.  Returns (state, {"walls", "waits" (the host's wait
+    on the data), "losses", "synced", "triggers" (which of clock and value
+    was due: TRAIN_STALENESS, and the step's max|δ| from vap_accum against
+    TRAIN_VALUE_BOUND), "gmax" (that max), "invariant" (the VAP invariant
+    after the step), "launches" (with ``counters``, a function returning
+    launch counts: each step's)} of lists)."""
+    from repro_torch.core.sync import vap_invariant_ok
+
+    hist = {k: [] for k in ("walls", "waits", "losses", "synced", "triggers",
+                            "gmax", "invariant", "launches")}
+    for _ in range(n_steps):
+        t = time.perf_counter()
+        batch = next(it)
+        t_data = time.perf_counter()
+        since = int(state.sync.steps_since_sync[0])
+        n_vap = len(run["calls"]["vap_accum"])
+        before = counters() if counters else {}
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        after = counters() if counters else {}
+        hist["launches"].append({k: after[k] - before[k] for k in after})
+        hist["waits"].append(t_data - t)
+        hist["walls"].append(t_end - t)
+        hist["losses"].append(float(metrics["loss"]))
+        hist["synced"].append(bool(metrics["synced"]))
+        step_max = max(float(m) for _, m in run["calls"]["vap_accum"][n_vap:])
+        hist["gmax"].append(step_max)
+        hist["triggers"].append(
+            (["clock"] if since + 1 >= TRAIN_STALENESS + 1 else [])
+            + (["value"] if step_max > TRAIN_VALUE_BOUND else []))
+        hist["invariant"].append(bool(vap_invariant_ok(policy,
+                                                       state.sync).all()))
+    return state, hist
+
+
 def run_train_phase(dev, seed, smi):
     """Mamba2-130M at full width and depth, trained on the card over
     TRAIN_REPLICAS replicas stacked there, each on TRAIN_ROWS sequences of
@@ -2776,7 +2889,6 @@ def run_train_phase(dev, seed, smi):
     the backward's first call, lines)."""
     from repro_torch.configs import ConsistencySpec, TrainConfig, get_config
     from repro_torch.core import policies
-    from repro_torch.core.sync import vap_invariant_ok
     from repro_torch.data import SyntheticLM, batches
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.launch import steps
@@ -2812,36 +2924,14 @@ def run_train_phase(dev, seed, smi):
             return orig_plain[name](*a, **kw)
         return call
 
-    losses, synced, triggers, walls, waits, gmax, invariant = \
-        [], [], [], [], [], [], []
     for k in plain:
         setattr(ssd_ref, k, counting(k))
     try:
         with path_run(dev, keep_first=True) as run:
-            for i in range(TRAIN_STEPS):
-                t = time.perf_counter()
-                batch = next(it)
-                t_data = time.perf_counter()
-                since = int(state.sync.steps_since_sync[0])
-                n_vap = len(run["calls"]["vap_accum"])
-                state, metrics = step_fn(state, batch)
-                torch.cuda.synchronize()
-                t_end = time.perf_counter()
-                waits.append(t_data - t)
-                walls.append(t_end - t)
-                losses.append(float(metrics["loss"]))
-                synced.append(bool(metrics["synced"]))
-                step_max = max(float(m) for _, m in
-                               run["calls"]["vap_accum"][n_vap:])
-                gmax.append(step_max)
-                reasons = []
-                if since + 1 >= TRAIN_STALENESS + 1:
-                    reasons.append("clock")
-                if step_max > TRAIN_VALUE_BOUND:
-                    reasons.append("value")
-                triggers.append(reasons)
-                invariant.append(bool(vap_invariant_ok(policy,
-                                                       state.sync).all()))
+            state, hist = _train_steps(state, step_fn, it, TRAIN_STEPS, run,
+                                       policy)
+        walls, waits, losses, synced, invariant = (hist[k] for k in (
+            "walls", "waits", "losses", "synced", "invariant"))
         peak = torch.cuda.max_memory_allocated(dev)
         launches = run["launches"]
         first_bwd = run["first"].get(("ssd_scan_bwd", torch.bfloat16))
@@ -2894,8 +2984,8 @@ def run_train_phase(dev, seed, smi):
             "tokens_per_s": tokens / step_med,
             "data_wait_s": waits, "data_wait_total_s": sum(waits),
             "peak_device_bytes": peak,
-            "losses": losses, "synced": synced, "triggers": triggers,
-            "delta_max_abs": gmax, "vap_invariant_ok": invariant,
+            "losses": losses, "synced": synced, "triggers": hist["triggers"],
+            "delta_max_abs": hist["gmax"], "vap_invariant_ok": invariant,
             "launches": got, "launches_per_replica_step": {
                 k: v / per_step for k, v in got.items() if k != "vap_accum"},
             "vap_accum_per_step": got["vap_accum"] / TRAIN_STEPS,
@@ -2944,6 +3034,463 @@ def run_train_phase(dev, seed, smi):
         raise AssertionError(f"train: a step on the card != on the CPU: "
                              f"{card_vs_cpu}")
     return launches, first_bwd, line
+
+
+# ---------------------------------------------------------------------------
+# train_rg: RecurrentGemma-9B at full width and reduced depth, one replica
+# ---------------------------------------------------------------------------
+
+TRAIN_RG_ARCH = "recurrentgemma-9b"
+TRAIN_RG_LAYERS = 5     # one rec/rec/attn unit and the model's two-layer tail
+TRAIN_RG_ROWS = 2       # sequences a step
+TRAIN_RG_STEPS = 6
+TRAIN_RG_REDUCED = {
+    "layers": f"{TRAIN_RG_LAYERS} of 38: one rec/rec/attn unit and the "
+              f"model's own two-layer float32 tail",
+    "global_batch": f"{TRAIN_RG_ROWS} sequences of train_4k's 256",
+    "steps": f"{TRAIN_RG_STEPS}",
+    "replicas": "1 (the reference's mesh=None step): the float32 master, "
+                "Adam's moments and δ of one replica take 32.8 GB, two "
+                "would take 65.6 GB before any gradient"}
+RGLRU_BWD_ENTRY = "one thread a lane: the forward's states recomputed (a " \
+                  "saved one every 16 steps), then a reverse sweep a " \
+                  "chunk at a time; dΛ summed over the batch rows by a " \
+                  "second launch"
+FLASH_BWD_ENTRY = "float32 pipes: D = rowsum(dO O), then dk / dv per " \
+                  "32-key tile walking the band's query tiles and the G " \
+                  "heads, then dq per 32-row tile (three launches)"
+RGLRU_BWD_KERNELS = re.compile(r"rglru_bwd_(dparam_)?kernel")
+FLASH_BWD_KERNELS = re.compile(r"flash_bwd_(dot|dkdv|dq)_kernel")
+FLASH_FWD_KERNELS = re.compile(r"flash_(wgmma|fwd)_kernel")
+
+
+def check_rglru_bwd(dev, x, r_gate, i_gate, a_param, initial, dh,
+                    dh_last=None, c=8.0):
+    """The rglru_scan backward against its plain version on the card
+    (``ref.rglru_bwd``: the forward's loop, then an explicit reverse sweep
+    in float32); twice for the same bits; both timed.  The bound counts the
+    bytes it must move (x, r, i, dh read and dx, dr, di written once, Λ and
+    dΛ, the states given or returned) and ~31 float32 operations an element
+    (the gates and the step again, the reverse step and the chain)."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+
+    args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                 for a in (x, r_gate, i_gate, a_param, initial, dh, dh_last,
+                           c))
+    got = ops.rglru_bwd(*args)
+    want = ref.rglru_bwd(*args)
+    torch.cuda.synchronize()
+    ok, err, need = _bwd_close(got, want, BWD_TOL)
+    if not ok:
+        raise AssertionError(f"rglru_bwd {tuple(x.shape)} {x.dtype}: kernel "
+                             f"!= plain (max abs err {err})")
+    same = _same_bits(got, ops.rglru_bwd(*args))
+    del want
+    big = x.numel() > 10_000_000
+    ms = cuda_ms(lambda: ops.rglru_bwd(*args), reps=10 if big else REPS)
+    plain_ms = cuda_ms(lambda: ref.rglru_bwd(*args), reps=3 if big else 5,
+                       warmup=1)
+    esize = x.element_size()
+    nbytes = esize * (7 * x.numel() + 2 * a_param.numel()) + 4 * sum(
+        t.numel() for t in (initial, dh_last, got[4]) if t is not None)
+    bound_ms, bound_by = bound(nbytes, 31 * x.numel(), torch.float32)
+    return {"shape": f"x/r/i/dh {'x'.join(map(str, x.shape))} "
+                     f"{_dname(x.dtype)}"
+                     + (" initial" if initial is not None else "")
+                     + (" dh_last" if dh_last is not None else ""),
+            "entry": ops.RGLRU_BWD_ENTRIES[x.dtype],
+            "design": RGLRU_BWD_ENTRY, "max_abs_err": err,
+            "least_abs_factor": need,
+            "tolerance": f"{BWD_TOL[x.dtype][0]} max|plain| + "
+                         f"{BWD_TOL[x.dtype][1]:.5f} |plain|",
+            "same_bits_twice": same, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms}
+
+
+def check_linear_recurrence_bwd(dev, a, b, initial, dh, dh_last=None):
+    """The bare recurrence's backward entry against its plain version on
+    the card, as check_rglru_bwd."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+
+    args = (a, b, initial, dh, dh_last)
+    got = ops.linear_recurrence_bwd(*args)
+    want = ref.linear_recurrence_bwd(*args)
+    torch.cuda.synchronize()
+    ok, err, need = _bwd_close(got, want, BWD_TOL)
+    if not ok:
+        raise AssertionError(f"linear_recurrence_bwd {tuple(a.shape)}: "
+                             f"kernel != plain (max abs err {err})")
+    same = _same_bits(got, ops.linear_recurrence_bwd(*args))
+    del want
+    big = a.numel() > 10_000_000
+    ms = cuda_ms(lambda: ops.linear_recurrence_bwd(*args))
+    plain_ms = cuda_ms(lambda: ref.linear_recurrence_bwd(*args),
+                       reps=3 if big else 5, warmup=1)
+    nbytes = 4 * (5 * a.numel() + sum(
+        t.numel() for t in (initial, dh_last, got[2]) if t is not None))
+    bound_ms, bound_by = bound(nbytes, 5 * a.numel(), torch.float32)
+    return {"shape": f"a/b/dh {'x'.join(map(str, a.shape))} float32"
+                     + (" initial" if initial is not None else "")
+                     + (" dh_last" if dh_last is not None else ""),
+            "entry": "linear_recurrence_bwd_f32", "max_abs_err": err,
+            "least_abs_factor": need, "same_bits_twice": same, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms}
+
+
+def rglru_bwd_stress_cases(dev):
+    """Both fused entries with an initial state and dh_last, w not a
+    multiple of 8 (rows the forward pads for TMA), l = 1, and the sqrt
+    clamp's region (a within 1e-12 of 1: the forward's check_rglru_sqrt
+    domain's lower end), each twice for the same bits; then the bare
+    recurrence's entry."""
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    out = {"rglru_scan_bwd": [], "linear_recurrence_bwd": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, l, w, init, last, clamp in ((2, 64, 128, True, True, False),
+                                           (1, 100, 50, True, False, False),
+                                           (3, 1, 40, False, True, False),
+                                           (2, 37, 256, True, True, True),
+                                           (2, 333, 4096, True, True, False)):
+            r = uniform(0, 1, b, l, w)
+            lam = randn(w)
+            if clamp:           # -c softplus(Λ) r ~ -1e-12: 1 - a² clamped
+                r = uniform(0, 1e-3, b, l, w)
+                lam = torch.full((w,), -30.0, device=dev)
+            out["rglru_scan_bwd"].append(check_rglru_bwd(
+                dev, randn(b, l, w, dtype=dtype), r.to(dtype),
+                uniform(0, 1, b, l, w).to(dtype), lam.to(dtype),
+                randn(b, w) if init else None, randn(b, l, w, dtype=dtype),
+                randn(b, w) if last else None))
+    for b, l, w in ((2, 64, 128), (1, 33, 50), (2, 4096, 4096)):
+        out["linear_recurrence_bwd"].append(check_linear_recurrence_bwd(
+            dev, uniform(0.7, 0.999, b, l, w), randn(b, l, w) * 0.1,
+            randn(b, w), randn(b, l, w), randn(b, w)))
+    return out
+
+
+def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
+                    cap=None):
+    """The flash_attention backward against its plain version on the card
+    (``ref.attention_bwd``: dense float32 formulas), twice for the same
+    bits; both timed, and one library call where one computes the same
+    function: the backward of scaled_dot_product_attention with the window
+    as a boolean mask (no softcap), its forward run once outside the
+    timing.  The bound counts 2 (3 dh + 2 dv) flops a (query, key) pair the
+    mask keeps, at the inputs' type's rate, and q, k, v, o, do, lse read and
+    dq, dk, dv written once."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q, k, v, out, dout = (t.detach() for t in (q, k, v, out, dout))
+    args = (q, k, v, q_pos, k_pos, out, lse, dout, window, cap)
+    got = ops.flash_attention_bwd(*args)
+    want = ref.attention_bwd(q, k, v, q_pos, k_pos, window, cap, dout)
+    torch.cuda.synchronize()
+    ok, err, need = _bwd_close(got, want, FLASH_BWD_TOL)
+    if not ok:
+        raise AssertionError(f"flash_attention_bwd {tuple(q.shape)} "
+                             f"{q.dtype}: kernel != plain (max abs err "
+                             f"{err}, least absolute factor {need})")
+    same = _same_bits(got, ops.flash_attention_bwd(*args))
+    del want
+    torch.cuda.empty_cache()
+    b, sq, kvh, G, dh = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    big = q.numel() > 10_000_000
+    ms = cuda_ms(lambda: ops.flash_attention_bwd(*args),
+                 reps=5 if big else REPS, warmup=1 if big else 3)
+    plain_ms = cuda_ms(lambda: ref.attention_bwd(q, k, v, q_pos, k_pos,
+                                                 window, cap, dout),
+                       reps=3 if big else 5, warmup=1)
+    mask = k_pos[None, :].long() <= q_pos[:, None].long()
+    if window is not None:
+        mask &= k_pos[None, :].long() > q_pos[:, None].long() - window
+    library_ms = None
+    if cap is None:
+        qs = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * G, sq, dh).detach() \
+            .requires_grad_(True)
+        ks = k.permute(0, 2, 1, 3).detach().requires_grad_(True)
+        vs = v.permute(0, 2, 1, 3).detach().requires_grad_(True)
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                               enable_gqa=True)
+        do_lib = dout.permute(0, 2, 3, 1, 4).reshape(o_lib.shape)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            o_lib, (qs, ks, vs), do_lib, retain_graph=True),
+            reps=5 if big else REPS, warmup=1 if big else 3)
+        del o_lib, qs, ks, vs
+    pairs = int(mask.sum()) * b * kvh * G
+    flops = 2 * pairs * (3 * dh + 2 * dv)
+    esize = q.element_size()
+    nbytes = esize * 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
+        + 4 * (lse.numel() + sq + skv)
+    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+    return {"shape": f"q {'x'.join(map(str, q.shape))} kv {skv}x{dv} "
+                     f"{_dname(q.dtype)} window {window} cap {cap}",
+            "entry": ops.BWD_ENTRY[q.dtype], "design": FLASH_BWD_ENTRY,
+            "empty_key_slots": int((k_pos == 2**30).sum()),
+            "max_abs_err": err, "least_abs_factor": need,
+            "tolerance": f"{FLASH_BWD_TOL[q.dtype][0]} max|plain| + "
+                         f"{FLASH_BWD_TOL[q.dtype][1]:.5f} |plain|",
+            "same_bits_twice": same, "tflops": flops / ms / 1e9,
+            "bound_share": bound_ms / ms, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "scaled_dot_product_attention's backward (attn_mask="
+                       "window mask, enable_gqa=True)" if cap is None
+                       else None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
+
+
+# (b, sq, skv, kvh, G, dh, dv, window, cap, empty key slots): no window; a
+# softcap with G 4; dv != dh; a window with a cap; a q suffix over ragged
+# sq / skv with the second half of the key slots empty (rows that see no
+# key); dv > dh, both off the tiles
+FLASH_BWD_CASES = ((2, 256, 256, 2, 2, 64, 64, None, None, False),
+                   (1, 300, 300, 1, 4, 32, 32, None, 50.0, False),
+                   (1, 128, 128, 4, 1, 192, 128, None, None, False),
+                   (1, 512, 512, 1, 1, 128, 128, 64, 30.0, False),
+                   (1, 200, 333, 1, 4, 128, 64, 100, None, True),
+                   (2, 130, 130, 1, 2, 48, 80, 50, None, False))
+
+
+def flash_bwd_stress_cases(dev):
+    """FLASH_BWD_CASES in float32 and bfloat16; the forward (with its
+    log-sum-exp) gives o and lse."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, skv, kvh, G, dh, dv, window, cap, empty in FLASH_BWD_CASES:
+            q = randn(b, sq, kvh, G, dh, dtype=dtype)
+            k = randn(b, skv, kvh, dh, dtype=dtype)
+            v = randn(b, skv, kvh, dv, dtype=dtype)
+            q_pos = torch.arange(skv - sq, skv, dtype=torch.int32, device=dev)
+            k_pos = torch.arange(skv, dtype=torch.int32, device=dev)
+            if empty:
+                k_pos[skv // 2:] = 2**30
+            o, lse = ops.flash_attention(q, k, v, q_pos, k_pos, window, cap,
+                                         return_lse=True)
+            out.append(check_flash_bwd(dev, q, k, v, q_pos, k_pos, o, lse,
+                                       randn(b, sq, kvh, G, dv, dtype=dtype),
+                                       window, cap))
+    return out
+
+
+def run_train_rg_phase(dev, seed, smi):
+    """RecurrentGemma-9B at full width, TRAIN_RG_LAYERS layers, trained on
+    the card as one replica on TRAIN_RG_ROWS sequences of TRAIN_SEQ
+    SyntheticLM tokens a step; Adam, cvap.  Returns (launches, the
+    backwards' first calls {(name, dtype): (args, kw)}, line)."""
+    from repro_torch.configs import ConsistencySpec, TrainConfig, get_config
+    from repro_torch.core import policies
+    from repro_torch.data import SyntheticLM, batches
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+    from repro_torch.launch import steps
+    from repro_torch.launch.state import init_train_state
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_RG_ARCH),
+                              n_layers=TRAIN_RG_LAYERS)  # bfloat16 compute
+    tcfg = TrainConfig(arch=TRAIN_RG_ARCH, optimizer="adam", lr=TRAIN_LR,
+                       warmup_steps=TRAIN_WARMUP, seed=seed,
+                       consistency=ConsistencySpec(
+                           model="cvap", staleness=TRAIN_STALENESS,
+                           value_bound=TRAIN_VALUE_BOUND))
+    policy = policies.from_spec(tcfg.consistency)
+    # each unit layer's forward runs twice a step under remat, a tail
+    # layer's once; each backward once
+    _, unit, n_units, tail = M.group_layers(cfg, M.layer_metas(cfg))
+    fwd = 2 if tcfg.remat else 1
+    rec_unit = n_units * sum(m.kind == "rec" for m in unit)
+    rec_tail = sum(m.kind == "rec" for m in tail)
+    want_step = {"rglru_bf16": fwd * rec_unit, "rglru_f32": rec_tail,
+                 "rglru_bwd_bf16": rec_unit, "rglru_bwd_f32": rec_tail,
+                 "flash_attention": fwd * n_units * sum(
+                     m.kind == "attn" for m in unit),
+                 "flash_attention_bwd": n_units * sum(
+                     m.kind == "attn" for m in unit)}
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    state = init_train_state(cfg, tcfg, tp=1, dp=1, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_leaves = len(tree_leaves(state.params))
+    n_params = sum(x[0].numel() for x in tree_leaves(state.params))
+    state_bytes = {
+        "master_adam_delta": sum(x.numel() * x.element_size() for x in
+                                 tree_leaves(state.params)
+                                 + tree_leaves(state.opt.mu)
+                                 + tree_leaves(state.opt.nu)
+                                 + list(state.sync.delta.values()))}
+    step_fn = steps.make_train_step(cfg, tcfg)
+    it = batches(SyntheticLM(cfg.vocab_size, seed=seed), TRAIN_RG_ROWS,
+                 TRAIN_SEQ)
+
+    # the plain versions are counted, and must not run on this path
+    plain_fns = {(rg_ref, "rglru"), (rg_ref, "rglru_bwd"),
+                 (fa_ref, "attention"), (fa_ref, "attention_bwd")}
+    plain = {name: 0 for _, name in plain_fns}
+    orig_plain = {(mod, name): getattr(mod, name) for mod, name in plain_fns}
+
+    def counting(mod, name):
+        def call(*a, **kw):
+            plain[name] += 1
+            return orig_plain[(mod, name)](*a, **kw)
+        return call
+
+    def counters():
+        return {**rg_ops.launches_by_entry, **rg_ops.bwd_launches_by_entry,
+                "flash_attention": fa_ops.launches,
+                "flash_attention_bwd": fa_ops.bwd_launches}
+
+    for mod, name in plain_fns:
+        setattr(mod, name, counting(mod, name))
+    try:
+        with path_run(dev, keep_first=True) as run:
+            state, hist = _train_steps(state, step_fn, it, TRAIN_RG_STEPS,
+                                       run, policy, counters)
+        walls, losses, synced, invariant = (hist[k] for k in (
+            "walls", "losses", "synced", "invariant"))
+        per_step = [{k: c[k] for k in want_step} for c in hist["launches"]]
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = run["launches"]
+        by_entry = run["rglru_scan_by_entry"]
+        first = {k: v for k, v in run["first"].items()
+                 if k[0] in ("rglru_scan_bwd", "flash_attention_bwd")}
+        first_shapes = {f"{name} {_dname(dtype)}": [
+            list(a.shape) for a in args if isinstance(a, torch.Tensor)]
+            for (name, dtype), (args, _) in first.items()}
+        del run
+
+        # one more step, profiled (its counts checked apart)
+        batch = next(it)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with path_run(dev) as prun, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t
+        prof_launches = prun["launches"]
+        del prun
+    finally:
+        for (mod, name), fn in orig_plain.items():
+            setattr(mod, name, fn)
+    device_s = device_seconds(prof)
+    busy_s = sum(device_s.values())
+
+    def by(pattern):
+        return {k: v for k, v in device_s.items() if pattern.search(k)}
+
+    rg_bwd, fa_bwd, fa_fwd = (by(RGLRU_BWD_KERNELS), by(FLASH_BWD_KERNELS),
+                              by(FLASH_FWD_KERNELS))
+    rg_fwd = rglru_scan_seconds(device_s, prof_launches["rglru_scan"])
+    del state, prof
+    torch.cuda.empty_cache()
+
+    tokens = TRAIN_RG_ROWS * TRAIN_SEQ
+    step_med = statistics.median(walls[1:])
+    card_vs_cpu = train_step_card_vs_cpu(dev, seed, TRAIN_RG_ARCH)
+    line = {"phase": "train_rg", "model": TRAIN_RG_ARCH, "nvidia_smi": smi,
+            "params": n_params, "layers": cfg.n_layers,
+            "layer_kinds": [m.kind for m in M.layer_metas(cfg)],
+            "d_model": cfg.d_model, "rglru_width": cfg.recurrent.width,
+            "heads": f"{cfg.n_heads} x {cfg.d_head}, {cfg.n_kv_heads} kv",
+            "window": cfg.window, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+            "master_dtype": "float32", "state_bytes": state_bytes,
+            "replicas": 1, "rows": TRAIN_RG_ROWS, "seq_len": TRAIN_SEQ,
+            "steps": TRAIN_RG_STEPS, "reduced": TRAIN_RG_REDUCED,
+            "optimizer": "adam", "lr": TRAIN_LR,
+            "warmup_steps": TRAIN_WARMUP, "remat": tcfg.remat,
+            "policy": f"cvap({TRAIN_STALENESS}, {TRAIN_VALUE_BOUND})",
+            "init_s": init_s, "step_wall_s": walls,
+            "step_wall_median_s": step_med,
+            "tokens_per_s": tokens / step_med,
+            "peak_device_bytes": peak, "losses": losses, "synced": synced,
+            "triggers": hist["triggers"], "delta_max_abs": hist["gmax"],
+            "vap_invariant_ok": invariant,
+            "launches": {k: launches[k] for k in (
+                "rglru_scan", "rglru_scan_bwd", "flash_attention",
+                "flash_attention_bwd", "vap_accum")},
+            "rglru_scan_by_entry": by_entry,
+            "launches_per_step": per_step, "want_per_step": want_step,
+            "vap_accum_per_step": launches["vap_accum"] / TRAIN_RG_STEPS,
+            "leaves": n_leaves, "plain_calls": plain,
+            "first_backward_calls": first_shapes,
+            "profiled": {"what": "one more step", "wall_s": prof_wall_s,
+                         "device_busy_s": busy_s,
+                         "device_idle_share": 1.0 - busy_s / prof_wall_s,
+                         "launches": {k: prof_launches[k] for k in (
+                             "rglru_scan", "rglru_scan_bwd",
+                             "flash_attention", "flash_attention_bwd")},
+                         "rglru_scan_forward_device_s": rg_fwd,
+                         "rglru_scan_backward_device_s": sum(
+                             rg_bwd.values()),
+                         "flash_attention_forward_device_s": sum(
+                             fa_fwd.values()),
+                         "flash_attention_backward_device_s": sum(
+                             fa_bwd.values()),
+                         "backward_by_name": {**rg_bwd, **fa_bwd},
+                         "elementwise_device_s": sum(
+                             v for k, v in device_s.items()
+                             if ELEMENTWISE.search(k)),
+                         "device_s_by_name": dict(sorted(
+                             device_s.items(), key=lambda kv: -kv[1])[:25])},
+            "card_vs_cpu_step": card_vs_cpu}
+    emit(line)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_rg: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_rg: the loss did not fall: {losses}")
+    if not all(invariant):
+        raise AssertionError(f"train_rg: the VAP invariant broke: "
+                             f"{invariant}")
+    if not any(synced):
+        raise AssertionError(f"train_rg: no step synced: {synced}")
+    if any(s != want_step for s in per_step):
+        raise AssertionError(f"train_rg: launches a step {per_step}, not "
+                             f"{want_step}")
+    if launches["vap_accum"] != n_leaves * TRAIN_RG_STEPS:
+        raise AssertionError(f"train_rg: vap_accum launched "
+                             f"{launches['vap_accum']}, not one a leaf a "
+                             f"step")
+    if (prof_launches["rglru_scan_bwd"], prof_launches["flash_attention_bwd"]
+            ) != (want_step["rglru_bwd_bf16"] + want_step["rglru_bwd_f32"],
+                  want_step["flash_attention_bwd"]):
+        raise AssertionError(f"train_rg: the profiled step launched "
+                             f"{prof_launches}")
+    if any(plain.values()):
+        raise AssertionError(f"train_rg: the plain versions ran: {plain}")
+    if not (rg_bwd and fa_bwd and fa_fwd and rg_fwd):
+        raise AssertionError("train_rg: the profile shows no backward or "
+                             "forward kernel by name")
+    if set(first) != {("rglru_scan_bwd", torch.bfloat16),
+                      ("rglru_scan_bwd", torch.float32),
+                      ("flash_attention_bwd", torch.bfloat16)}:
+        raise AssertionError(f"train_rg: first backward calls noted "
+                             f"{sorted(map(str, first))}")
+    if not card_vs_cpu["ok"]:
+        raise AssertionError(f"train_rg: a step on the card != on the CPU: "
+                             f"{card_vs_cpu}")
+    return launches, first, line
 
 
 def path_shapes(calls):
@@ -3014,6 +3561,10 @@ def main() -> None:
     train_launches, first_bwd, train_line = run_train_phase(dev, args.seed,
                                                             smi)
     launches["ssd_scan_bwd"] = train_launches["ssd_scan_bwd"]
+    train_rg_launches, first_rg, train_rg_line = run_train_rg_phase(
+        dev, args.seed, smi)
+    for name in ("rglru_scan_bwd", "flash_attention_bwd"):
+        launches[name] = train_rg_launches[name]
 
     # first the paths' shapes (the table's rows), then stress shapes: a
     # batch 40,000 rows deep with sentinels in f64 and f32, a batch of 4,096
@@ -3078,6 +3629,27 @@ def main() -> None:
     cases["ssd_scan_bwd"][0]["device_ms_by_kernel"] = train_line[
         "profiled"]["ssd_scan_backward_ms_per_call_by_name"]
     del first_bwd
+    # the rglru_scan backward at the train_rg path's first call in each
+    # dtype (the unit's bfloat16, the tail's float32), then stress; the
+    # flash_attention backward at its first call, then stress; each first
+    # call with its kernels' device time a call from train_rg's profile
+    bwd_stress = rglru_bwd_stress_cases(dev)
+    cases["rglru_scan_bwd"] = [
+        check_rglru_bwd(dev, *a, **kw) for a, kw in (
+            first_rg[("rglru_scan_bwd", bf16)],
+            first_rg[("rglru_scan_bwd", f32)])] + bwd_stress["rglru_scan_bwd"]
+    a, kw = first_rg[("flash_attention_bwd", bf16)]
+    cases["flash_attention_bwd"] = ([check_flash_bwd(dev, *a, **kw)]
+                                    + flash_bwd_stress_cases(dev))
+    rg_prof = train_rg_line["profiled"]
+    for name, pattern in (("rglru_scan_bwd", RGLRU_BWD_KERNELS),
+                          ("flash_attention_bwd", FLASH_BWD_KERNELS)):
+        n_calls = max(rg_prof["launches"][name], 1)
+        cases[name][0]["device_ms_per_call_by_kernel"] = {
+            k: v * 1e3 / n_calls
+            for k, v in rg_prof["backward_by_name"].items()
+            if pattern.search(k)}
+    del first_rg, a, kw
     torch.cuda.empty_cache()
     train_vap = check_vap_accum(dev, (TRAIN_REPLICAS, 50_280, 768),
                                 torch.float32, 55)
@@ -3086,14 +3658,17 @@ def main() -> None:
           "tolerance": "bitwise (0) for ps_apply, topk_mag, vap_accum, "
                        "rglru_scan (its fused entries against the plain "
                        "version on the card, linear_recurrence on CPU "
-                       "copies); flash_attention and ssd_scan per case",
+                       "copies); flash_attention, ssd_scan and the "
+                       "backwards per case",
           "path_calls": {**{k: len(v) for k, v in calls.items()},
                          "vap_accum": launches["vap_accum"]},
           "app_calls": {k: len(v) for k, v in app_calls.items()},
           "replica_ingest_calls": len(replica_calls),
           "app_launches": app_launches,
           "rglru_sqrt": check_rglru_sqrt(dev),
-          "cases": {**cases, "linear_recurrence": linear_recurrence}})
+          "cases": {**cases, "linear_recurrence": linear_recurrence,
+                    "linear_recurrence_bwd":
+                        bwd_stress["linear_recurrence_bwd"]}})
 
     source = {"ps_apply": ("src/repro_torch/kernels/ps_apply/kernel.cu",
                            "src/repro/kernels/ps_apply/kernel.py:47"),
@@ -3112,6 +3687,16 @@ def main() -> None:
                   "src/repro_torch/kernels/ssd_scan/backward.cu",
                   "none: no TPU kernel (the JAX package differentiates "
                   "src/repro/kernels/ssd_scan/ref.py:34 with "
+                  "jax.value_and_grad)"),
+              "rglru_scan_bwd": (
+                  "src/repro_torch/kernels/rglru_scan/backward.cu",
+                  "none: no TPU kernel (the JAX package differentiates "
+                  "src/repro/kernels/rglru_scan/ref.py:34 with "
+                  "jax.value_and_grad)"),
+              "flash_attention_bwd": (
+                  "src/repro_torch/kernels/flash_attention/backward.cu",
+                  "none: no TPU kernel (the JAX package differentiates "
+                  "src/repro/models/attention.py:41, attention_core, with "
                   "jax.value_and_grad)")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
@@ -3129,6 +3714,7 @@ def main() -> None:
                       "replay_launches": {
                           k: v[name] for k, v in replay_launches.items()},
                       "train_launches": train_launches[name],
+                      "train_rg_launches": train_rg_launches[name],
                       **{k: main_case[k] for k in keys}})
     # vap_accum on the train path: one launch a leaf a step
     table[2]["train"] = {"launches": train_launches["vap_accum"],
@@ -3158,6 +3744,19 @@ def main() -> None:
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:51",
          "launches": rg_launches["linear_recurrence_f32"],
          **{k: linear_recurrence[-1][k] for k in keys}}]
+    # the entries' launches on the train_rg path
+    rg_row["train_rg_launches_by_entry"] = train_rg_line[
+        "rglru_scan_by_entry"]
+    # the bfloat16 forward at the serve call, also writing its log-sum-exp
+    # (the train path's forward)
+    fa_row = next(r for r in table if r["name"] == "flash_attention")
+    fa_row["ms_with_lse"] = cases["flash_attention"][0]["ms_with_lse"]
+    # the bare recurrence's backward entry, off the path
+    rgb_row = next(r for r in table if r["name"] == "rglru_scan_bwd")
+    rgb_row["entries"] = [
+        {"entry": "linear_recurrence_bwd_f32", "launches": train_rg_line[
+            "rglru_scan_by_entry"]["linear_recurrence_bwd_f32"],
+         **{k: bwd_stress["linear_recurrence_bwd"][-1][k] for k in keys}}]
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

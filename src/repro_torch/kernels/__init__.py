@@ -6,6 +6,11 @@ Each kernel lives in its own subpackage with three files:
   kernel.cu — the CUDA C++ source, compiled for sm_90a by :mod:`._build`
   ref.py    — the plain PyTorch version the kernel is held against
   ops.py    — the public wrapper: launch counter, ctypes binding, checks
+and, where a training path differentiates it (``ssd_scan``,
+``rglru_scan``, ``flash_attention``), a ``backward.cu`` whose kernels the
+wrapper's ``torch.autograd.Function`` runs, with its plain version in
+``ref.py``.  ``ps_apply``, ``topk_mag`` and ``vap_accum`` run under
+``no_grad`` on the parameter server's and the sync layer's paths.
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor always
 launches the kernel (or raises), a CPU tensor always takes ``ref.py``.  There
@@ -31,17 +36,3 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run on the host")
     return dev
 
-
-def refuse_grad(name: str, *tensors) -> None:
-    """A kernel with no backward refuses to join an autograd graph: on the
-    card, under grad mode, an input that requires grad raises
-    ``NotImplementedError`` instead of an output with no graph, which would
-    cut the gradient of every parameter upstream without a word.  Under
-    ``torch.no_grad`` / ``torch.inference_mode`` (the serve steps) nothing
-    is refused."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the kernel has no backward yet, so it cannot be "
-            f"differentiated on the card (ROADMAP Queue 1 item 6.1b: the "
-            f"rglru_scan and flash_attention backward kernels)")

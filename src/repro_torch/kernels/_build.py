@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
 Every CUDA source of a kernel subpackage (``kernels/*/*.cu``: each
-``kernel.cu``, and ``ssd_scan/backward.cu``) is compiled for Hopper
+``kernel.cu``, and the ``backward.cu`` of ``ssd_scan``, ``rglru_scan`` and
+``flash_attention``) is compiled for Hopper
 (``sm_90a``) by its own ``nvcc`` process, all started together, and the objects are linked into one
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 build runs at first use, from the package's own sources, into

@@ -130,8 +130,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ q_pos,
                  const int* __restrict__ k_pos, T* __restrict__ out,
-                 int64_t sq, int64_t skv, int64_t kvh, int64_t G, int dh,
-                 int dv, int64_t window, float cap, float scale) {
+                 float* __restrict__ lse, int64_t sq, int64_t skv,
+                 int64_t kvh, int64_t G, int dh, int dv, int64_t window,
+                 float cap, float scale) {
   extern __shared__ float4 smem4[];
   const int ld = dh + 4;
   float* qs = reinterpret_cast<float*>(smem4);     // kBQ x ld
@@ -266,14 +267,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = lane + 32 * j;
       if (c < dv) ob[qi * o_stride + c] = from_f<T>(acc[i][j] / denom);
     }
+    // the row's log-sum-exp, where asked for; +inf for a row with no key
+    if (lse != nullptr && lane == 0)
+      lse[head * sq + qi] = l[i] > 0.0f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <typename T>
 int launch(int device, const void* q, const void* k, const void* v,
-           const void* q_pos, const void* k_pos, void* out, int64_t b,
-           int64_t sq, int64_t skv, int64_t kvh, int64_t G, int64_t dh,
-           int64_t dv, int64_t window, double cap, double scale,
+           const void* q_pos, const void* k_pos, void* out, void* lse,
+           int64_t b, int64_t sq, int64_t skv, int64_t kvh, int64_t G,
+           int64_t dh, int64_t dv, int64_t window, double cap, double scale,
            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -288,9 +292,10 @@ int launch(int device, const void* q, const void* k, const void* v,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(k_pos), static_cast<T*>(out), sq, skv, kvh, G,
-      static_cast<int>(dh), static_cast<int>(dv), window,
-      static_cast<float>(cap), static_cast<float>(scale));
+      static_cast<const int*>(k_pos), static_cast<T*>(out),
+      static_cast<float*>(lse), sq, skv, kvh, G, static_cast<int>(dh),
+      static_cast<int>(dv), window, static_cast<float>(cap),
+      static_cast<float>(scale));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -509,8 +514,9 @@ __device__ __forceinline__ void produce(
 template <int D>
 __device__ __forceinline__ void consume(
     uint32_t base, const int* kpos_s, const int* flag_s,
-    const int* __restrict__ q_pos, __nv_bfloat16* __restrict__ out, int q0,
-    int sq, int dv, int64_t o_row, int64_t o_head, int64_t window, float cap,
+    const int* __restrict__ q_pos, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int q0, int sq, int dv, int64_t o_row,
+    int64_t o_head, int64_t lse_head, int64_t window, float cap,
     float scale) {
   using S = Smem<D>;
   constexpr int kN = D / kBox;               // 64-column accumulator blocks
@@ -646,6 +652,9 @@ __device__ __forceinline__ void consume(
     const float inv = lsum > 0.0f ? 1.0f / lsum : 0.0f;
     const int qi = q0 + row0 + 8 * h;
     if (qi >= sq) continue;
+    // the row's log-sum-exp, where asked for; +inf for a row with no key
+    if (lse != nullptr && t4 == 0)
+      lse[lse_head + qi] = lsum > 0.0f ? m[h] + logf(lsum) : INFINITY;
     __nv_bfloat16* orow = out + qi * o_row + o_head;
 #pragma unroll
     for (int n = 0; n < kN; ++n)
@@ -667,8 +676,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv,
                    const int* __restrict__ q_pos,
                    const int* __restrict__ k_pos,
-                   __nv_bfloat16* __restrict__ out, int sq, int skv, int kvh,
-                   int G, int dv, int64_t window, float cap, float scale) {
+                   __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ lse, int sq, int skv, int kvh, int G,
+                   int dv, int64_t window, float cap, float scale) {
   using S = Smem<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -702,10 +712,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  skv, qhead, qhead / G, bi, window);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    consume<D>(base, kpos_s, flag_s, q_pos, out, q0, sq, dv,
+    consume<D>(base, kpos_s, flag_s, q_pos, out, lse, q0, sq, dv,
                static_cast<int64_t>(kvh) * G * dv,
-               (static_cast<int64_t>(bi) * sq * kvh * G + qhead) * dv, window,
-               cap, scale);
+               (static_cast<int64_t>(bi) * sq * kvh * G + qhead) * dv,
+               (static_cast<int64_t>(bi) * kvh * G + qhead) * sq, window, cap,
+               scale);
   }
 }
 
@@ -732,9 +743,9 @@ CUresult tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 
 template <int D>
 int launch(int device, const void* q, const void* k, const void* v,
-           const void* q_pos, const void* k_pos, void* out, int64_t b,
-           int64_t sq, int64_t skv, int64_t kvh, int64_t G, int64_t dh,
-           int64_t dv, int64_t window, double cap, double scale,
+           const void* q_pos, const void* k_pos, void* out, void* lse,
+           int64_t b, int64_t sq, int64_t skv, int64_t kvh, int64_t G,
+           int64_t dh, int64_t dv, int64_t window, double cap, double scale,
            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -759,7 +770,8 @@ int launch(int device, const void* q, const void* k, const void* v,
                           static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<const int*>(q_pos),
       static_cast<const int*>(k_pos), static_cast<__nv_bfloat16*>(out),
-      static_cast<int>(sq), static_cast<int>(skv), static_cast<int>(kvh),
+      static_cast<float*>(lse), static_cast<int>(sq), static_cast<int>(skv),
+      static_cast<int>(kvh),
       static_cast<int>(G), static_cast<int>(dv), window,
       static_cast<float>(cap), static_cast<float>(scale));
   return static_cast<int>(cudaGetLastError());
@@ -772,29 +784,32 @@ int launch(int device, const void* q, const void* k, const void* v,
 // The caller guarantees b * sq * kvh * G * dv > 0, b * kvh * G < 65,536;
 // window < 0 means none, cap <= 0 means none.  float32: dh % 4 == 0, dh and
 // dv <= 256.  bfloat16: dh and dv multiples of 16 and <= 256, sq and skv
-// < 2^31, 16-byte aligned pointers.  Returns the launch's cudaError_t, or
-// minus libcuda's CUresult where a TMA tensor map could not be encoded.
+// < 2^31, 16-byte aligned pointers.  lse: null, or float32 (b, kvh, G, sq)
+// for the rows' log-sum-exp of the scaled, capped, masked logits (+inf on a
+// row with no key; the backward recomputes P from it).  Returns the launch's
+// cudaError_t, or minus libcuda's CUresult where a TMA tensor map could not
+// be encoded.
 extern "C" int flash_attention_f32(int device, const void* q, const void* k,
                                    const void* v, const void* q_pos,
-                                   const void* k_pos, void* out, int64_t b,
-                                   int64_t sq, int64_t skv, int64_t kvh,
-                                   int64_t G, int64_t dh, int64_t dv,
-                                   int64_t window, double cap, double scale,
-                                   void* stream) {
-  return launch<float>(device, q, k, v, q_pos, k_pos, out, b, sq, skv, kvh, G,
-                       dh, dv, window, cap, scale, stream);
+                                   const void* k_pos, void* out, void* lse,
+                                   int64_t b, int64_t sq, int64_t skv,
+                                   int64_t kvh, int64_t G, int64_t dh,
+                                   int64_t dv, int64_t window, double cap,
+                                   double scale, void* stream) {
+  return launch<float>(device, q, k, v, q_pos, k_pos, out, lse, b, sq, skv,
+                       kvh, G, dh, dv, window, cap, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(int device, const void* q, const void* k,
                                     const void* v, const void* q_pos,
-                                    const void* k_pos, void* out, int64_t b,
-                                    int64_t sq, int64_t skv, int64_t kvh,
-                                    int64_t G, int64_t dh, int64_t dv,
-                                    int64_t window, double cap, double scale,
-                                    void* stream) {
+                                    const void* k_pos, void* out, void* lse,
+                                    int64_t b, int64_t sq, int64_t skv,
+                                    int64_t kvh, int64_t G, int64_t dh,
+                                    int64_t dv, int64_t window, double cap,
+                                    double scale, void* stream) {
   const int64_t d = dh > dv ? dh : dv;
   auto* const run = d <= 64 ? tc::launch<64> : d <= 128 ? tc::launch<128>
                                                         : tc::launch<256>;
-  return run(device, q, k, v, q_pos, k_pos, out, b, sq, skv, kvh, G, dh, dv,
-             window, cap, scale, stream);
+  return run(device, q, k, v, q_pos, k_pos, out, lse, b, sq, skv, kvh, G, dh,
+             dv, window, cap, scale, stream);
 }

@@ -1,17 +1,21 @@
-"""Public flash-attention op: the CUDA kernel for CUDA tensors, ``ref`` on
+"""Public flash-attention op: the CUDA kernels for CUDA tensors, ``ref`` on
 CPU.
 
 ``flash_attention`` is what the port's ``attention_core_dispatch`` calls for
-the full-sequence (prefill) attention of
+the full-sequence (prefill and training) attention of
 :func:`repro_torch.models.attention.attn_fwd`.  Its contract is the TPU
 kernel's (``flash_attention/kernel.py:86``): positions are shared by the
 batch, ``q_pos`` (sq,) and ``k_pos`` (skv,), and 2-D positions are refused
 with ``ValueError`` on either device; decode, whose positions differ per
-request, keeps the plain version (``ref.attention``).  The kernel has no
-backward yet: on the card an input that requires grad under grad mode
-raises (:func:`repro_torch.kernels.refuse_grad`); on the CPU the plain
-version is differentiated by autograd.
-"""
+request, keeps the plain version (``ref.attention``).
+
+On the card, where q, k or v requires grad under grad mode, it is a
+``torch.autograd.Function``: its forward also writes the rows' log-sum-exp,
+and its backward is :func:`flash_attention_bwd`, the kernels of
+``backward.cu``; otherwise the forward launches alone with no log-sum-exp
+(serving).  On the CPU it is the plain version, which autograd
+differentiates as it is; the ``Function`` runs there too when called
+directly, its backward then the plain ``ref.attention_bwd``."""
 from __future__ import annotations
 
 import ctypes
@@ -22,24 +26,31 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-# kernel launches made by flash_attention (reset by callers that count a run)
+# kernel calls made by flash_attention and by its backward, one per call
+# (reset by callers that count a run)
 launches = 0
+bwd_launches = 0
 _COUNT_LOCK = threading.Lock()
 
 MAX_HEAD_DIM = 256          # dh and dv: the kernel's tile width
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
-_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7
-         + [ctypes.c_int64, ctypes.c_double, ctypes.c_double,
-            ctypes.c_void_p])
+BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+             torch.bfloat16: "flash_attention_bwd_bf16"}
+_TAIL = [ctypes.c_int64] * 8 + [ctypes.c_double, ctypes.c_double,
+                                ctypes.c_void_p]
+_ARGS = {**dict.fromkeys(_ENTRY.values(),
+                         [ctypes.c_int] + [ctypes.c_void_p] * 7 + _TAIL),
+         **dict.fromkeys(BWD_ENTRY.values(),
+                         [ctypes.c_int] + [ctypes.c_void_p] * 12 + _TAIL)}
 
 
 @functools.cache
 def _entry(name: str):
-    return _build.entry(name, _ARGS)
+    return _build.entry(name, _ARGS[name])
 
 
 def _check(q, k, v, q_pos, k_pos) -> None:
@@ -82,7 +93,7 @@ def _check(q, k, v, q_pos, k_pos) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor,
                     window: Optional[int] = None,
-                    cap: Optional[float] = None) -> torch.Tensor:
+                    cap: Optional[float] = None, return_lse: bool = False):
     """Masked GQA attention: query head ``(kv, g)`` attends to kv head
     ``kv``; key j is seen by query i where ``k_pos[j] <= q_pos[i]`` and,
     with a window, ``k_pos[j] > q_pos[i] - window``; logits are soft-capped
@@ -90,23 +101,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (b, sq, kvh, G, dh), k (b, skv, kvh, dh), v (b, skv, kvh, dv), q_pos
     (sq,) and k_pos (skv,) integers (``2**30`` marks an empty key slot).
-    Returns (b, sq, kvh, G, dv) in q's dtype.  On the card q, k, v are all
-    bfloat16 (the tensor-core kernel: dh and dv multiples of 16, at most
-    256, P rounded to bfloat16 for the second product) or all float32 (the
-    float32-pipe kernel: dh a multiple of 4, dh and dv at most 256), with
-    float32 accumulators; anything else raises.
+    Returns (b, sq, kvh, G, dv) in q's dtype; with ``return_lse`` also the
+    rows' log-sum-exp (b, kvh, G, sq) float32 (+inf on a row with no key),
+    and then no autograd graph.  On the card q, k, v are all bfloat16 (the
+    tensor-core kernel: dh and dv multiples of 16, at most 256, P rounded to
+    bfloat16 for the second product) or all float32 (the float32-pipe
+    kernel: dh a multiple of 4, dh and dv at most 256), with float32
+    accumulators; anything else raises.
     """
     _check(q, k, v, q_pos, k_pos)
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, q_pos, k_pos, window=window, cap=cap)
-    refuse_grad("flash_attention", q, k, v)
+        out = ref.attention(q, k, v, q_pos, k_pos, window=window, cap=cap)
+        if return_lse:
+            return out, ref.attention_lse(q, k, q_pos, k_pos, window, cap)
+        return out
+    if not return_lse and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, q_pos, k_pos, window, cap)
+    out, lse = _forward(q, k, v, q_pos, k_pos, window, cap, return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _forward(q, k, v, q_pos, k_pos, window, cap, with_lse):
+    """The forward launch on the card (inputs checked): (out, lse or
+    None)."""
     b, sq, kvh, G, dh = q.shape
     skv, dv = k.shape[1], v.shape[-1]
     out = torch.empty((b, sq, kvh, G, dv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    if skv == 0:                # no key at all: every row gives 0
-        return out.zero_()
+    lse = (torch.empty((b, kvh, G, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0 or skv == 0:   # no key at all: every row gives 0
+        if lse is not None:
+            lse.fill_(math.inf)
+        return out.zero_(), lse
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the bfloat16 kernel reads q, k, v "
@@ -115,8 +142,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kp = k_pos.to(torch.int32).contiguous()
     err = _entry(_ENTRY[q.dtype])(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        qp.data_ptr(), kp.data_ptr(), out.data_ptr(), b, sq, skv, kvh, G, dh,
-        dv, -1 if window is None else int(window),
+        qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, sq, skv, kvh, G, dh, dv,
+        -1 if window is None else int(window),
         0.0 if cap is None else float(cap), 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
@@ -127,4 +155,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     with _COUNT_LOCK:
         launches += 1
-    return out
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient,
+    :func:`flash_attention_bwd`: the kernels on the card (the forward writes
+    the rows' log-sum-exp for it), the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, window, cap):
+        ctx.window, ctx.cap = window, cap
+        out, lse = flash_attention(q, k, v, q_pos, k_pos, window, cap,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, dout,
+                                     ctx.window, ctx.cap),
+                None, None, None, None)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, k_pos: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, window: Optional[int] = None,
+                        cap: Optional[float] = None):
+    """The vector-Jacobian product of :func:`flash_attention`: given the
+    forward's ``out`` and ``lse`` (``return_lse=True``) and the cotangent
+    ``dout`` (b, sq, kvh, G, dv), returns (dq, dk, dv) in q's dtype.  On the
+    card one call of ``flash_attention_bwd_bf16`` / ``_f32`` (three
+    launches: D = rowsum(dout out), then dk and dv, then dq; float32
+    arithmetic), with :func:`flash_attention`'s limits and dout and out in
+    q's dtype; a CPU tensor takes ``ref.attention_bwd``, which recomputes
+    what ``out`` and ``lse`` hold."""
+    _check(q, k, v, q_pos, k_pos)
+    b, sq, kvh, G, dh = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    shape_o = (b, sq, kvh, G, dv)
+    if tuple(dout.shape) != shape_o or tuple(out.shape) != shape_o or tuple(
+            lse.shape) != (b, kvh, G, sq):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, lse "
+                         f"{tuple(lse.shape)} and dout {tuple(dout.shape)} do "
+                         f"not match q {tuple(q.shape)}, dv {dv}")
+    if len({q.device, out.device, lse.device, dout.device}) != 1:
+        raise ValueError("flash_attention_bwd: tensors must share a device")
+    if q.device.type == "cpu":
+        return ref.attention_bwd(q, k, v, q_pos, k_pos, window, cap, dout)
+    if out.dtype != q.dtype or dout.dtype != q.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: out and dout must be "
+                        f"{q.dtype} and lse float32, got {out.dtype} / "
+                        f"{dout.dtype} / {lse.dtype}")
+    dq, dk, dvv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    if q.numel() == 0 or skv == 0 or dv == 0:
+        return dq.zero_(), dk.zero_(), dvv.zero_()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out, lse, dout = out.contiguous(), lse.contiguous(), dout.contiguous()
+    qp = q_pos.to(torch.int32).contiguous()
+    kp = k_pos.to(torch.int32).contiguous()
+    dsum = torch.empty((b, kvh, G, sq), dtype=torch.float32, device=q.device)
+    err = _entry(BWD_ENTRY[q.dtype])(
+        q.device.index, *(t.data_ptr() for t in (q, k, v, qp, kp, out, lse,
+                                                  dout, dq, dk, dvv, dsum)),
+        b, sq, skv, kvh, G, dh, dv, -1 if window is None else int(window),
+        0.0 if cap is None else float(cap), 1.0 / math.sqrt(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")
+    global bwd_launches
+    with _COUNT_LOCK:
+        bwd_launches += 1
+    return dq, dk, dvv

@@ -1,15 +1,21 @@
-"""Public RG-LRU ops: the CUDA kernel for CUDA tensors, ``ref`` on CPU.
+"""Public RG-LRU ops: the CUDA kernels for CUDA tensors, ``ref`` on CPU.
 
 ``rglru`` is what :func:`repro_torch.models.recurrent.rglru_fwd` runs over a
-whole sequence (prefill): on the card one launch computes the gates, the
-recurrence and h's cast, as the reference's ``rglru_pallas`` computes the
-gates in jnp around its recurrence kernel.  ``linear_recurrence`` is the
-bare recurrence (the reference's ``linear_recurrence_pallas``), the same
-kernel with the gates left out.  Decode runs the plain ``rglru_step``.
-Neither kernel has a backward yet: on the card an input that requires grad
-under grad mode raises (:func:`repro_torch.kernels.refuse_grad`); on the
-CPU the plain versions are differentiated by autograd.
-"""
+whole sequence (prefill and training): on the card one launch computes the
+gates, the recurrence and h's cast, as the reference's ``rglru_pallas``
+computes the gates in jnp around its recurrence kernel.
+``linear_recurrence`` is the bare recurrence (the reference's
+``linear_recurrence_pallas``), the same kernel with the gates left out.
+Decode runs the plain ``rglru_step``.
+
+On the card, where an input requires grad under grad mode, each is a
+``torch.autograd.Function`` whose backward is :func:`rglru_bwd` /
+:func:`linear_recurrence_bwd`, the kernels of ``backward.cu`` (the state
+recomputed bit for bit, then a reverse sweep); otherwise the forward
+launches alone (serving).  On the CPU they are the plain versions, which
+autograd differentiates as they are; the ``Function``s run there too when
+called directly, their backward then the plain ``ref.rglru_bwd`` /
+``ref.linear_recurrence_bwd``."""
 from __future__ import annotations
 
 import ctypes
@@ -19,22 +25,34 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build
 from repro_torch.kernels.rglru_scan import ref
 
-# kernel launches made by rglru and linear_recurrence, in all and by entry
-# (reset by callers that count a run)
+# kernel calls made by rglru and linear_recurrence and by their backwards,
+# in all and by entry (reset by callers that count a run)
 launches = 0
+bwd_launches = 0
 _COUNT_LOCK = threading.Lock()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _RGLRU_ARGS = [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                ctypes.c_double, _P]
-_ARGS = {"rglru_bf16": _RGLRU_ARGS, "rglru_f32": _RGLRU_ARGS,
-         "linear_recurrence_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _P]}
+_RGLRU_BWD_ARGS = [ctypes.c_int] + [_P] * 14 + [_I] * 3 + [ctypes.c_double,
+                                                          _P]
+_FWD_ARGS = {"rglru_bf16": _RGLRU_ARGS, "rglru_f32": _RGLRU_ARGS,
+             "linear_recurrence_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _P]}
+_BWD_ARGS = {"rglru_bwd_bf16": _RGLRU_BWD_ARGS,
+             "rglru_bwd_f32": _RGLRU_BWD_ARGS,
+             "linear_recurrence_bwd_f32": [ctypes.c_int] + [_P] * 9
+             + [_I] * 3 + [_P]}
+_ARGS = {**_FWD_ARGS, **_BWD_ARGS}
 RGLRU_ENTRIES = {torch.bfloat16: "rglru_bf16", torch.float32: "rglru_f32"}
-launches_by_entry = dict.fromkeys(_ARGS, 0)
+RGLRU_BWD_ENTRIES = {torch.bfloat16: "rglru_bwd_bf16",
+                     torch.float32: "rglru_bwd_f32"}
+launches_by_entry = dict.fromkeys(_FWD_ARGS, 0)
+bwd_launches_by_entry = dict.fromkeys(_BWD_ARGS, 0)
+CHUNK = 16          # steps between the states the backward keeps (kChunk)
 
 rglru_step = ref.rglru_step
 
@@ -130,6 +148,11 @@ def _launch(name: str, ins: Sequence[torch.Tensor],
     return (h if wp == w else h[..., :w].contiguous()), h_last
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor,
                       initial: Optional[torch.Tensor] = None,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -142,7 +165,8 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor,
     _check("linear_recurrence", (a, b), initial, (torch.float32,))
     if a.device.type == "cpu":
         return ref.linear_recurrence(a, b, initial)
-    refuse_grad("linear_recurrence", a, b, initial)
+    if _wants_grad(a, b, initial):
+        return _LinearRecurrence.apply(a, b, initial)
     return _launch("linear_recurrence_f32", (a, b), initial)
 
 
@@ -158,6 +182,161 @@ def rglru(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
            a_param)
     if x.device.type == "cpu":
         return ref.rglru(x, r_gate, i_gate, a_param, initial, c)
-    refuse_grad("rglru", x, r_gate, i_gate, a_param, initial)
+    if _wants_grad(x, r_gate, i_gate, a_param, initial):
+        return _RGLRU.apply(x, r_gate, i_gate, a_param, initial, c)
     return _launch(RGLRU_ENTRIES[x.dtype], (x, r_gate, i_gate), initial,
                    a_param, float(c))
+
+
+class _RGLRU(torch.autograd.Function):
+    """:func:`rglru` with its gradient, :func:`rglru_bwd`: the kernels on
+    the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, r_gate, i_gate, a_param, initial, c):
+        ctx.set_materialize_grads(False)
+        ctx.c = c
+        ctx.save_for_backward(x, r_gate, i_gate, a_param, initial)
+        return rglru(x, r_gate, i_gate, a_param, initial, c)
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        x, r_gate, i_gate, a_param, initial = ctx.saved_tensors
+        return (*rglru_bwd(x, r_gate, i_gate, a_param, initial, dh, dh_last,
+                           ctx.c), None)
+
+
+class _LinearRecurrence(torch.autograd.Function):
+    """:func:`linear_recurrence` with its gradient,
+    :func:`linear_recurrence_bwd`."""
+
+    @staticmethod
+    def forward(ctx, a, b, initial):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, b, initial)
+        return linear_recurrence(a, b, initial)
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, b, initial = ctx.saved_tensors
+        return linear_recurrence_bwd(a, b, initial, dh, dh_last)
+
+
+def _check_bwd(name: str, ins: Sequence[torch.Tensor],
+               dh: Optional[torch.Tensor],
+               dh_last: Optional[torch.Tensor], dtype) -> None:
+    """The cotangents against the inputs: shapes and devices everywhere; on
+    the card dh in ``dtype`` and dh_last float32."""
+    bsz, l, w = ins[0].shape
+    if (dh is not None and tuple(dh.shape) != (bsz, l, w)) or (
+            dh_last is not None and tuple(dh_last.shape) != (bsz, w)):
+        raise ValueError(f"{name}: dh {None if dh is None else tuple(dh.shape)}"
+                         f" / dh_last "
+                         f"{None if dh_last is None else tuple(dh_last.shape)}"
+                         f" do not match ({bsz}, {l}, {w})")
+    if any(t is not None and t.device != ins[0].device
+           for t in (dh, dh_last)):
+        raise ValueError(f"{name}: tensors must share a device")
+    if ins[0].device.type == "cpu":
+        return
+    if (dh is not None and dh.dtype != dtype) or (
+            dh_last is not None and dh_last.dtype != torch.float32):
+        raise TypeError(f"{name}: on the card dh must be {dtype} and dh_last "
+                        f"float32, got "
+                        f"{None if dh is None else dh.dtype} / "
+                        f"{None if dh_last is None else dh_last.dtype}")
+
+
+def _launch_bwd(name: str, ins: Sequence[torch.Tensor],
+                outs: Sequence[torch.Tensor], initial, dh, dh_last, dinit,
+                a_param: Optional[torch.Tensor] = None, c: float = 0.0):
+    """One call of backward entry ``name`` over ``ins`` (b, l, w, packed),
+    writing ``outs`` (their cotangents, then da_param's where the entry
+    computes the gates from ``a_param``) and ``dinit``."""
+    bsz, l, w = ins[0].shape
+    dev = ins[0].device
+    initial, dh, dh_last = (None if t is None else t.contiguous()
+                            for t in (initial, dh, dh_last))
+    # float32 scratch: the state entering every CHUNK steps, and with the
+    # gates each lane's dΛ partial a batch row
+    scratch = [torch.empty((bsz, -(-l // CHUNK), w), dtype=torch.float32,
+                           device=dev)]
+    gates = a_param is not None
+    if gates:
+        scratch.append(torch.empty((bsz, w), dtype=torch.float32,
+                                   device=dev))
+    ptrs = [*ins, *([a_param] if gates else []), initial, dh, dh_last,
+            *scratch, *outs, dinit]
+    err = _entry(name)(dev.index, *map(_ptr, ptrs), bsz, l, w,
+                       *([c] if gates else []),
+                       torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"rglru_scan backward ({name}) launch failed: "
+                           f"CUDA error {err}")
+    global bwd_launches
+    with _COUNT_LOCK:
+        bwd_launches += 1
+        bwd_launches_by_entry[name] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _outputs(like: Sequence[torch.Tensor], initial, dh_last, steps: bool):
+    """The cotangents' buffers: one like each of ``like``, and dinit where
+    there is an initial state; with no step (l = 0, or no lane) zeros and
+    dh_last passed through to dinit."""
+    if steps:
+        return ([torch.empty_like(t) for t in like],
+                None if initial is None else torch.empty_like(initial))
+    return ([torch.zeros_like(t) for t in like],
+            None if initial is None else torch.zeros_like(initial)
+            if dh_last is None else dh_last.float().clone())
+
+
+def linear_recurrence_bwd(a: torch.Tensor, b: torch.Tensor,
+                          initial: Optional[torch.Tensor],
+                          dh: Optional[torch.Tensor],
+                          dh_last: Optional[torch.Tensor] = None):
+    """The vector-Jacobian product of :func:`linear_recurrence`: given dh
+    (batch, l, w) and dh_last (batch, w) (either may be None), returns (da,
+    db, dinitial), dinitial None without an initial state.  On the card
+    everything is float32 (one launch of ``linear_recurrence_bwd_f32``); a
+    CPU tensor takes ``ref.linear_recurrence_bwd``."""
+    _check("linear_recurrence_bwd", (a, b), initial, (torch.float32,))
+    _check_bwd("linear_recurrence_bwd", (a, b), dh, dh_last, torch.float32)
+    if a.device.type == "cpu":
+        return ref.linear_recurrence_bwd(a, b, initial, dh, dh_last)
+    ins = [a.contiguous(), b.contiguous()]
+    outs, dinit = _outputs(ins, initial, dh_last, a.numel() > 0)
+    if a.numel():
+        _launch_bwd("linear_recurrence_bwd_f32", ins, outs, initial, dh,
+                    dh_last, dinit)
+    return (*outs, dinit)
+
+
+def rglru_bwd(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
+              a_param: torch.Tensor, initial: Optional[torch.Tensor],
+              dh: Optional[torch.Tensor],
+              dh_last: Optional[torch.Tensor] = None, c: float = 8.0):
+    """The vector-Jacobian product of :func:`rglru`: given dh (b, l, w) in
+    h's dtype and dh_last (b, w) float32 (either may be None), returns (dx,
+    dr, di, da_param, dinitial): the first four in x's dtype, dinitial
+    float32 (None without an initial state).  On the card one call of
+    ``rglru_bwd_bf16`` / ``rglru_bwd_f32`` (two launches: the lanes' sweeps,
+    then dΛ's sum over the batch rows); a CPU tensor takes
+    ``ref.rglru_bwd``."""
+    _check("rglru_bwd", (x, r_gate, i_gate), initial, tuple(RGLRU_ENTRIES),
+           a_param)
+    _check_bwd("rglru_bwd", (x, r_gate, i_gate), dh, dh_last, x.dtype)
+    if x.device.type == "cpu":
+        return ref.rglru_bwd(x, r_gate, i_gate, a_param, initial, dh,
+                             dh_last, c)
+    ins = [t.contiguous() for t in (x, r_gate, i_gate)]
+    a_param = a_param.contiguous()
+    outs, dinit = _outputs((*ins, a_param), initial, dh_last, x.numel() > 0)
+    if x.numel():
+        _launch_bwd(RGLRU_BWD_ENTRIES[x.dtype], ins, outs, initial, dh,
+                    dh_last, dinit, a_param, float(c))
+    return (*outs, dinit)

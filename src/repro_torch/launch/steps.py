@@ -37,28 +37,11 @@ from repro_torch.models.common import ShardCtx, tree_leaves, tree_map, \
 from repro_torch.optim import OptState, optimizer_update
 from repro_torch.optim.schedule import constant, linear_warmup
 
-# what the card cannot differentiate yet: their kernels have no backward
-_NEEDS_BACKWARD = ("RecurrentGemma training needs backward kernels for "
-                   "rglru_scan and flash_attention (ROADMAP Queue 1 item "
-                   "6.1b)")
-
-
 def make_ctx(mesh) -> ShardCtx:
     if mesh is None:
         return ShardCtx()
     raise NotImplementedError("the port runs on one card (mesh=None); a "
                               "mesh is ROADMAP Queue 1 item 7")
-
-
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise ``NotImplementedError`` where a train step on ``device`` would
-    go through a kernel with no backward: on the card, any attention or
-    RG-LRU layer.  (Their wrappers refuse such a graph too.)"""
-    if torch.device(device).type != "cuda":
-        return
-    kinds = set(cfg.layer_kinds())
-    if "attn" in kinds or ("rec" in kinds and cfg.recurrent.kind == "rglru"):
-        raise NotImplementedError(f"{cfg.name}: {_NEEDS_BACKWARD}")
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -79,7 +62,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     def train_step(state: TrainState, batch: Dict):
         dev = tree_leaves(state.params)[0].device
-        check_trainable(cfg, dev)
         k = int(state.step.shape[0])
         ids = torch.as_tensor(batch["ids"]).to(dev, torch.long)
         labels = torch.as_tensor(batch["labels"]).to(dev, torch.long)
@@ -89,6 +71,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         rows = ids.shape[0] // k
         lr = lr_fn(state.step[0])
         update = tree_map(torch.empty_like, state.params)
+        state_f = [tree_paths(t) for t in (state.params, state.opt.mu,
+                                           state.opt.nu, update)]
         per_replica = []
         for r in range(k):
             p_r = tree_map(lambda a: a[r].detach().requires_grad_(True),
@@ -100,17 +84,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             grad_leaves = iter(torch.autograd.grad(loss, leaves))
             grads = tree_map(lambda _: next(grad_leaves), p_r)
             with torch.no_grad():
-                opt_r = OptState(mu=tree_map(lambda a: a[r], state.opt.mu),
-                                 nu=tree_map(lambda a: a[r], state.opt.nu),
-                                 count=state.opt.count[r])
-                upd, new_opt = opt_fn(
-                    grads, opt_r, lr, weight_decay=tcfg.weight_decay,
-                    params=tree_map(lambda a: a[r], state.params))
-                tree_map(lambda dst, src: dst[r].copy_(src), update, upd)
-                tree_map(lambda dst, src: dst[r].copy_(src),
-                           state.opt.mu, new_opt.mu)
-                tree_map(lambda dst, src: dst[r].copy_(src),
-                           state.opt.nu, new_opt.nu)
+                # leaf by leaf (every optimizer is elementwise, so the
+                # numbers are the tree's): one leaf's new moments and update
+                # are held at a time, not a tree's worth of each
+                for path, g in tree_paths(grads).items():
+                    p, mu, nu, u = (flat[path] for flat in state_f)
+                    upd, new_opt = opt_fn(
+                        g, OptState(mu=mu[r], nu=nu[r],
+                                    count=state.opt.count[r]),
+                        lr, weight_decay=tcfg.weight_decay, params=p[r])
+                    u[r].copy_(upd)
+                    mu[r].copy_(new_opt.mu)
+                    nu[r].copy_(new_opt.nu)
+                    del upd, new_opt
                 # the reference's leaf order: sorted paths
                 sq = sum(torch.dot(g.reshape(-1), g.reshape(-1))
                          for g in tree_paths(grads).values())

@@ -9,10 +9,17 @@ float32 variant, which also runs on the CPU:
         --replicas 2 --batch 8 --seq 4096 --steps 8 \\
         --consistency cvap --staleness 2 --vthr 1e-3
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-9b --device cpu --smoke --steps 20
+
 ``--replicas k`` stacks k data-parallel replicas on the one card, each on
 its own ``batch / k`` rows of every batch, synced by the consistency
-policy.  On the card only Mamba-2 trains: RecurrentGemma's kernels have no
-backward yet (ROADMAP Queue 1 item 6.1b), and asking for it raises.
+policy.  Both architectures train on the card: Mamba-2 through the
+``ssd_scan`` kernels and their backward, RecurrentGemma through the
+``rglru_scan`` and ``flash_attention`` kernels and theirs.  The full-width
+RecurrentGemma-9B's float32 master, Adam moments and δ need 16 bytes a
+parameter (137 GB), more than one 80 GB card holds; ``chip_smoke.py``
+trains it at full width and reduced depth.
 """
 from __future__ import annotations
 
@@ -41,7 +48,6 @@ def run(tcfg: TrainConfig, cfg, mesh=None, batch_size: int = 8,
     ``wall``."""
     steps.make_ctx(mesh)                       # a mesh raises
     dev = resolve_device(device)
-    steps.check_trainable(cfg, dev)
     if batch_size % replicas:
         raise ValueError(f"batch {batch_size} does not split over "
                          f"{replicas} replicas")

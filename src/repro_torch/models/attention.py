@@ -3,9 +3,10 @@
 The port of the JAX package's ``models/attention.py`` (``:41-380``) for one
 card.  Prefill and decode compute the same masked attention two ways:
 
-* prefill calls ``attention_core_dispatch``, the hook the reference
-  declares for the flash kernel (``attention.py:102``) and never calls; on
-  a CUDA tensor it runs the hand-written flash kernel.
+* prefill and training call ``attention_core_dispatch``, the hook the
+  reference declares for the flash kernel (``attention.py:102``) and never
+  calls; on a CUDA tensor it runs the hand-written flash kernel, and its
+  backward kernel under autograd.
 * decode keeps the reference's plain core (``attention_core``, called at
   ``attention.py:372``): each request carries its own ``(b, 1)`` query
   position against the ring's ``(b, C)`` key positions, and the flash

@@ -1,9 +1,10 @@
 """Recurrent mixers: RG-LRU (RecurrentGemma) and Mamba-2 SSD blocks.
 
 The port of the JAX package's ``models/recurrent.py`` at tp = 1.  Both
-mixers have a full-sequence mode (prefill: the ``rglru_scan`` or
-``ssd_scan`` kernel) and a single-token decode mode carrying a recurrent
-state cache (plain ``rglru_step`` / ``ssd_step``):
+mixers have a full-sequence mode (prefill and training: the ``rglru_scan``
+or ``ssd_scan`` kernel, differentiated on the card by its backward kernel)
+and a single-token decode mode carrying a recurrent state cache (plain
+``rglru_step`` / ``ssd_step``):
   RG-LRU : {h (b, w), conv (b, cw-1, w)}
   Mamba2 : {h (b, nh, hd, ds), conv (b, cw-1, w + 2·g·ds)}
 Where a cache is given, it is written in place and returned (the reference

@@ -1,5 +1,5 @@
 """The gradient of the port's ``ssd_scan`` against the JAX package's, on the
-CPU, and the CPU side of the kernels' gradient guard.
+CPU, and autograd through the other kernels' wrappers on CPU tensors.
 
 ``ref.ssd_scan_bwd`` (the backward kernel's plain version: autograd through
 ``ssd_chunked`` in float32) is held against ``jax.vjp`` of the JAX
@@ -10,7 +10,9 @@ as column slices of one tensor (Mamba2's ``xBC``).  Tolerance: rtol 2e-4,
 atol 2e-5 (float32, summed in other orders).  Then ``ops.ssd_scan`` on CPU
 tensors is differentiated by autograd to the same numbers, and
 ``flash_attention`` / ``rglru`` / ``linear_recurrence`` on CPU tensors that
-require grad pass autograd through (the guard refuses only the card).
+require grad are their plain versions, which autograd differentiates (on
+the card each is an autograd ``Function`` with a backward kernel,
+``tests/test_torch_train_cuda.py``).
 """
 import numpy as np
 import pytest

@@ -21,8 +21,8 @@ gradients, updated parameters and optimizer and sync state rtol 2e-4, atol
   * ``launch.train.run`` with checkpoints; four steps on one batch lower
     the loss.
 
-The one ``cuda`` test runs a step on the card against the JAX package on
-the CPU.
+The ``cuda`` test runs two steps of each architecture on the card against
+the JAX package on the CPU.
 """
 import dataclasses
 import os
@@ -52,6 +52,8 @@ from repro_torch import convert
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs import ConsistencySpec, TrainConfig, reduced_config
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.vap_accum import ops as vap_ops
 from repro_torch.launch import steps, train
@@ -439,11 +441,12 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_train_step_on_the_card_matches_reference(cuda):
-    """Reduced Mamba2 in float32: the scan's forward and backward kernels
-    (float32 entries) and vap_accum on the card, SGD under cvap, against the
-    JAX package on the CPU."""
-    arch = "mamba2-130m"
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_on_the_card_matches_reference(arch, cuda):
+    """Reduced Mamba2 and RecurrentGemma in float32: their kernels' forward
+    and backward float32 entries (ssd_scan; rglru_scan and flash_attention)
+    and vap_accum on the card, SGD under cvap, against the JAX package on
+    the CPU."""
     rc, pc = _cfgs(arch)
     rt, pt = _tcfgs(arch, optimizer="sgd", model="cvap", staleness=1,
                     vthr=1e-4, lr=1e-2)
@@ -451,7 +454,11 @@ def test_train_step_on_the_card_matches_reference(cuda):
     ps = _port_state(rs, cuda)
     rstep = RS.make_train_step(rc, rt, mesh=None, donate=False)
     pstep = steps.make_train_step(pc, pt)
-    ssd_ops.launches = ssd_ops.bwd_launches = vap_ops.launches = 0
+    mods = (ssd_ops, rg_ops, flash_ops, vap_ops)
+    for m in mods:
+        m.launches = 0
+        if m is not vap_ops:
+            m.bwd_launches = 0
     for i in range(2):
         batch = _batch(rc, 30 + i)
         rs, rm = rstep(rs, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -459,6 +466,11 @@ def test_train_step_on_the_card_matches_reference(cuda):
         _close_metrics(rm, pm)
         _close_states(rs, ps)
     n_leaves = len(tree_leaves(ps.params))
-    assert ssd_ops.bwd_launches == 2 * pc.n_layers
-    assert ssd_ops.launches == 2 * 2 * pc.n_layers      # remat: twice
+    # each layer of its kind a step, its forward twice (remat)
+    kinds = [m.kind for m in M.layer_metas(pc)]
+    mixer = ({"rec": ssd_ops} if arch == "mamba2-130m"
+             else {"rec": rg_ops, "attn": flash_ops})
+    for kind, m in mixer.items():
+        assert m.bwd_launches == 2 * kinds.count(kind), kind
+        assert m.launches == 2 * 2 * kinds.count(kind), kind
     assert vap_ops.launches == 2 * n_leaves
