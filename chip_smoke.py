@@ -310,12 +310,15 @@ Phases, each printed as one JSON line:
            50, l 1, the sqrt clamp's region, 333 steps at w 4,096; both
            dtypes), and its bare recurrence's entry; the flash_attention
            backward at the path's first call (bfloat16, 2 x 4,096 x 1 x 16
-           x 256, window 2,048) and at stress shapes (softcap, G 1-4, dv !=
-           dh, empty key slots and rows that see no key, ragged sq / skv,
-           no window; both dtypes): each against its plain version on the
-           card (rglru: 1e-4 max|plain| + 1e-3 |plain|, + 2^-6 |plain| for
-           a bfloat16 output; flash: the same in float32, 1e-2 max|plain| +
-           2^-6 |plain| in bfloat16), run twice for the same bits, with the
+           x 256, window 2,048, with the bfloat16 kernels' registers and
+           shared memory) and at stress shapes (softcap, G 1-4, dv != dh,
+           empty key slots and rows that see no key, ragged sq / skv, no
+           window, the path's heads and width at 700 positions; both
+           dtypes): each against its plain version on the card (rglru:
+           1e-4 max|plain| + 1e-3 |plain|, + 2^-6 |plain| for a bfloat16
+           output; flash: the same in float32, 1e-2 max|plain| + 2^-6
+           |plain| in bfloat16), run twice and failing where the two
+           differ in bits (every backward check does), with the
            library's time where one call computes it (flash: the backward
            of scaled_dot_product_attention with the window as a boolean
            mask) and its bound.  The flash forward's cases also carry its
@@ -2706,6 +2709,9 @@ def check_ssd_bwd(dev, x, dt, A, B, C, chunk, initial_state, dy, dfinal):
         raise AssertionError(f"ssd_scan_bwd {tuple(x.shape)} {x.dtype}: "
                              f"kernel != plain (max abs err {err})")
     same = _same_bits(got, ops.ssd_scan_bwd(*args))
+    if not same:
+        raise AssertionError(f"ssd_scan_bwd {tuple(x.shape)} {x.dtype}: two "
+                             f"calls differ in bits")
     del want
     big = x.numel() > 10_000_000
     ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args), reps=10 if big else REPS)
@@ -3056,11 +3062,19 @@ RGLRU_BWD_ENTRY = "one thread a lane: the forward's states recomputed (a " \
                   "saved one every 16 steps), then a reverse sweep a " \
                   "chunk at a time; dΛ summed over the batch rows by a " \
                   "second launch"
-FLASH_BWD_ENTRY = "float32 pipes: D = rowsum(dO O), then dk / dv per " \
-                  "32-key tile walking the band's query tiles and the G " \
-                  "heads, then dq per 32-row tile (three launches)"
+FLASH_BWD_ENTRY = {
+    torch.bfloat16: "wgmma: D = rowsum(dO O); dk / dv per 64-key tile and "
+                    "slice of the G heads (K, V kept, Q, dO streamed by "
+                    "TMA, one warpgroup forming P^T and dV, one dS^T and "
+                    "dK), the slices' float32 partials summed in order; dq "
+                    "per 128 query rows (K, V streamed, S and dP again); "
+                    "P and dS rounded to bf16 (three or four launches)",
+    torch.float32: "float32 pipes: D = rowsum(dO O), then dk / dv per "
+                   "32-key tile walking the band's query tiles and the G "
+                   "heads, then dq per 32-row tile (three launches)"}
 RGLRU_BWD_KERNELS = re.compile(r"rglru_bwd_(dparam_)?kernel")
-FLASH_BWD_KERNELS = re.compile(r"flash_bwd_(dot|dkdv|dq)_kernel")
+FLASH_BWD_KERNELS = re.compile(r"flash_bwd_(dot|dkdv|dq|kv_wgmma|sum|q_wgmma)"
+                               r"_kernel")
 FLASH_FWD_KERNELS = re.compile(r"flash_(wgmma|fwd)_kernel")
 
 
@@ -3085,6 +3099,9 @@ def check_rglru_bwd(dev, x, r_gate, i_gate, a_param, initial, dh,
         raise AssertionError(f"rglru_bwd {tuple(x.shape)} {x.dtype}: kernel "
                              f"!= plain (max abs err {err})")
     same = _same_bits(got, ops.rglru_bwd(*args))
+    if not same:
+        raise AssertionError(f"rglru_bwd {tuple(x.shape)} {x.dtype}: two "
+                             f"calls differ in bits")
     del want
     big = x.numel() > 10_000_000
     ms = cuda_ms(lambda: ops.rglru_bwd(*args), reps=10 if big else REPS)
@@ -3122,6 +3139,9 @@ def check_linear_recurrence_bwd(dev, a, b, initial, dh, dh_last=None):
         raise AssertionError(f"linear_recurrence_bwd {tuple(a.shape)}: "
                              f"kernel != plain (max abs err {err})")
     same = _same_bits(got, ops.linear_recurrence_bwd(*args))
+    if not same:
+        raise AssertionError(f"linear_recurrence_bwd {tuple(a.shape)}: two "
+                             f"calls differ in bits")
     del want
     big = a.numel() > 10_000_000
     ms = cuda_ms(lambda: ops.linear_recurrence_bwd(*args))
@@ -3180,8 +3200,10 @@ def rglru_bwd_stress_cases(dev):
 def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
                     cap=None):
     """The flash_attention backward against its plain version on the card
-    (``ref.attention_bwd``: dense float32 formulas), twice for the same
-    bits; both timed, and one library call where one computes the same
+    (``ref.attention_bwd``: dense float32 formulas), twice, failing where
+    the two differ in bits; both timed (a bfloat16 case with the bfloat16
+    kernels' registers and shared memory), and one library call where one
+    computes the same
     function: the backward of scaled_dot_product_attention with the window
     as a boolean mask (no softcap), its forward run once outside the
     timing.  The bound counts 2 (3 dh + 2 dv) flops a (query, key) pair the
@@ -3200,6 +3222,9 @@ def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
                              f"{q.dtype}: kernel != plain (max abs err "
                              f"{err}, least absolute factor {need})")
     same = _same_bits(got, ops.flash_attention_bwd(*args))
+    if not same:
+        raise AssertionError(f"flash_attention_bwd {tuple(q.shape)} "
+                             f"{q.dtype}: two calls differ in bits")
     del want
     torch.cuda.empty_cache()
     b, sq, kvh, G, dh = q.shape
@@ -3226,6 +3251,9 @@ def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
             o_lib, (qs, ks, vs), do_lib, retain_graph=True),
             reps=5 if big else REPS, warmup=1 if big else 3)
         del o_lib, qs, ks, vs
+    # the bfloat16 kernels' registers, spills and shared memory (d 256)
+    extra = ({"kernel_attrs": ops.bwd_bf16_attrs(dev)}
+             if q.dtype == torch.bfloat16 else {})
     pairs = int(mask.sum()) * b * kvh * G
     flops = 2 * pairs * (3 * dh + 2 * dv)
     esize = q.element_size()
@@ -3234,7 +3262,8 @@ def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
     bound_ms, bound_by = bound(nbytes, flops, q.dtype)
     return {"shape": f"q {'x'.join(map(str, q.shape))} kv {skv}x{dv} "
                      f"{_dname(q.dtype)} window {window} cap {cap}",
-            "entry": ops.BWD_ENTRY[q.dtype], "design": FLASH_BWD_ENTRY,
+            "entry": ops.BWD_ENTRY[q.dtype],
+            "design": FLASH_BWD_ENTRY[q.dtype],
             "empty_key_slots": int((k_pos == 2**30).sum()),
             "max_abs_err": err, "least_abs_factor": need,
             "tolerance": f"{FLASH_BWD_TOL[q.dtype][0]} max|plain| + "
@@ -3245,19 +3274,22 @@ def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
             "library": "scaled_dot_product_attention's backward (attn_mask="
                        "window mask, enable_gqa=True)" if cap is None
                        else None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
+            "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs,
+            **extra}
 
 
 # (b, sq, skv, kvh, G, dh, dv, window, cap, empty key slots): no window; a
 # softcap with G 4; dv != dh; a window with a cap; a q suffix over ragged
 # sq / skv with the second half of the key slots empty (rows that see no
-# key); dv > dh, both off the tiles
+# key); dv > dh, both off the tiles; the train call's heads and width (kv
+# heads 1, G 16, d 256) at 700 positions with a window below one tile
 FLASH_BWD_CASES = ((2, 256, 256, 2, 2, 64, 64, None, None, False),
                    (1, 300, 300, 1, 4, 32, 32, None, 50.0, False),
                    (1, 128, 128, 4, 1, 192, 128, None, None, False),
                    (1, 512, 512, 1, 1, 128, 128, 64, 30.0, False),
                    (1, 200, 333, 1, 4, 128, 64, 100, None, True),
-                   (2, 130, 130, 1, 2, 48, 80, 50, None, False))
+                   (2, 130, 130, 1, 2, 48, 80, 50, None, False),
+                   (1, 700, 700, 1, 16, 256, 256, 40, None, False))
 
 
 def flash_bwd_stress_cases(dev):

@@ -720,27 +720,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// a contiguous bf16 (batch, seq, heads, d) tensor as the 4-D map (d, heads,
-// seq, batch), read in boxes of 64 columns x ``rows`` positions of one head
-CUresult tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                    int64_t d, int64_t heads, int64_t seq, int64_t batch,
-                    uint32_t rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * d),
-                                 static_cast<cuuint64_t>(2 * d * heads),
-                                 static_cast<cuuint64_t>(2 * d * heads * seq)};
-  const cuuint32_t box[4] = {kBox, 1, rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int D>
 int launch(int device, const void* q, const void* k, const void* v,
            const void* q_pos, const void* k_pos, void* out, void* lse,
@@ -753,11 +732,11 @@ int launch(int device, const void* q, const void* k, const void* v,
   if (encode == nullptr)
     return static_cast<int>(cudaErrorSharedObjectInitFailed);
   CUtensorMap tq, tk, tv;
-  CUresult res = tensor_map(encode, &tq, q, dh, kvh * G, sq, b, kBM);
+  CUresult res = tensor_map_bf16(encode, &tq, q, dh, kvh * G, sq, b, kBM);
   if (res == CUDA_SUCCESS)
-    res = tensor_map(encode, &tk, k, dh, kvh, skv, b, kBN);
+    res = tensor_map_bf16(encode, &tk, k, dh, kvh, skv, b, kBN);
   if (res == CUDA_SUCCESS)
-    res = tensor_map(encode, &tv, v, dv, kvh, skv, b, kBN);
+    res = tensor_map_bf16(encode, &tv, v, dv, kvh, skv, b, kBN);
   if (res != CUDA_SUCCESS) return -static_cast<int>(res);
   const int smem = static_cast<int>(Smem<D>::kBytes) + 1024;   // + alignment
   err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,

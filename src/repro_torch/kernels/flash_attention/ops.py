@@ -45,7 +45,12 @@ _TAIL = [ctypes.c_int64] * 8 + [ctypes.c_double, ctypes.c_double,
 _ARGS = {**dict.fromkeys(_ENTRY.values(),
                          [ctypes.c_int] + [ctypes.c_void_p] * 7 + _TAIL),
          **dict.fromkeys(BWD_ENTRY.values(),
-                         [ctypes.c_int] + [ctypes.c_void_p] * 12 + _TAIL)}
+                         [ctypes.c_int] + [ctypes.c_void_p] * 12 + _TAIL),
+         "flash_attention_bwd_bf16_attrs": [ctypes.c_int, ctypes.c_void_p]}
+# the bfloat16 backward's kernels, in launch order (the sum only where the
+# G heads are split into slices), at d 256
+BWD_BF16_KERNELS = ("flash_bwd_dot_kernel", "flash_bwd_kv_wgmma_kernel",
+                    "flash_bwd_sum_kernel", "flash_bwd_q_wgmma_kernel")
 
 
 @functools.cache
@@ -187,11 +192,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The vector-Jacobian product of :func:`flash_attention`: given the
     forward's ``out`` and ``lse`` (``return_lse=True``) and the cotangent
     ``dout`` (b, sq, kvh, G, dv), returns (dq, dk, dv) in q's dtype.  On the
-    card one call of ``flash_attention_bwd_bf16`` / ``_f32`` (three
-    launches: D = rowsum(dout out), then dk and dv, then dq; float32
-    arithmetic), with :func:`flash_attention`'s limits and dout and out in
-    q's dtype; a CPU tensor takes ``ref.attention_bwd``, which recomputes
-    what ``out`` and ``lse`` hold."""
+    card one call of ``flash_attention_bwd_bf16`` / ``_f32``, with
+    :func:`flash_attention`'s limits and dout and out in q's dtype: D =
+    rowsum(dout out), then dk and dv, then dq.  bfloat16 runs every product
+    on the tensor cores (P and dS rounded to bfloat16 as operands, float32
+    sums; the G heads may be split into slices whose float32 partial dk and
+    dv pass through dq's memory and are summed by a fourth launch; q, k, v
+    and dout 16-byte aligned for TMA), float32 the float32 pipes.  A CPU
+    tensor takes ``ref.attention_bwd``, which recomputes what ``out`` and
+    ``lse`` hold."""
     _check(q, k, v, q_pos, k_pos)
     b, sq, kvh, G, dh = q.shape
     skv, dv = k.shape[1], v.shape[-1]
@@ -216,6 +225,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dvv.zero_()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out, lse, dout = out.contiguous(), lse.contiguous(), dout.contiguous()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v, dout)):
+        raise ValueError("flash_attention_bwd: the bfloat16 kernels read q, "
+                         "k, v and dout with TMA, which needs 16-byte "
+                         "aligned tensors")
     qp = q_pos.to(torch.int32).contiguous()
     kp = k_pos.to(torch.int32).contiguous()
     dsum = torch.empty((b, kvh, G, sq), dtype=torch.float32, device=q.device)
@@ -227,8 +241,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
-                           f"error {err}")
+                           f"error {err}" + (" (libcuda's CUresult, encoding "
+                                             "a TMA tensor map)"
+                                             if err < 0 else ""))
     global bwd_launches
     with _COUNT_LOCK:
         bwd_launches += 1
     return dq, dk, dvv
+
+
+def bwd_bf16_attrs(device: torch.device) -> dict:
+    """Each of the bfloat16 backward's kernels at d 256: registers a thread,
+    spilled (local) bytes a thread, static and dynamic shared memory a
+    block, and blocks a multiprocessor, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * (5 * len(BWD_BF16_KERNELS)))()
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    err = _entry("flash_attention_bwd_bf16_attrs")(index, out)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd: kernel attributes: CUDA "
+                           f"error {err}")
+    keys = ("registers", "local_bytes", "static_smem_bytes",
+            "dynamic_smem_bytes", "blocks_per_sm")
+    return {name: dict(zip(keys, out[5 * i:5 * i + 5]))
+            for i, name in enumerate(BWD_BF16_KERNELS)}

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarrier
-// waits and arrivals, TMA bulk copies (tensor boxes and plain runs of bytes)
-// between device memory and shared memory, and the lookup of
-// cuTensorMapEncodeTiled in the libcuda that the process has loaded (the
-// kernels' library links no libcuda of its own).  Included by each kernel
-// source that feeds a ring with TMA.
+// waits and arrivals, named barriers, TMA bulk copies (tensor boxes and
+// plain runs of bytes) between device memory and shared memory, the lookup
+// of cuTensorMapEncodeTiled in the libcuda that the process has loaded (the
+// kernels' library links no libcuda of its own), and the 4-D bf16 map the
+// flash-attention kernels read their tiles through.  Included by each
+// kernel source that feeds a ring with TMA.
 #pragma once
 
 #include <cstdint>
@@ -109,6 +110,15 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
 }
 
+// named barrier ``id`` (1 to 15; 0 is __syncthreads') over ``n`` threads, a
+// multiple of 32: wait until all n have arrived, or arrive without waiting
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
 // make this thread's writes to shared memory visible to TMA (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -131,6 +141,29 @@ inline EncodeTiled encode_tiled() {
                                 dlsym(lib, "cuTensorMapEncodeTiled"));
   }();
   return fn;
+}
+
+// a contiguous bf16 (batch, seq, heads, d) tensor as the 4-D map (d, heads,
+// seq, batch), read in boxes of 64 columns x ``rows`` positions of one head
+// with the 128-byte swizzle that wgmma reads; coordinates past the tensor
+// read as zeros
+inline CUresult tensor_map_bf16(EncodeTiled encode, CUtensorMap* map,
+                                const void* ptr, int64_t d, int64_t heads,
+                                int64_t seq, int64_t batch, uint32_t rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * d),
+                                 static_cast<cuuint64_t>(2 * d * heads),
+                                 static_cast<cuuint64_t>(2 * d * heads * seq)};
+  const cuuint32_t box[4] = {64, 1, rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace hopper

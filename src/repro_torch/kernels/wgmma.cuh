@@ -1,11 +1,13 @@
 // Hopper (sm_90a) tensor-core building blocks for the bfloat16 kernels of
 // the SSD scan, shared by its forward (ssd_scan/kernel.cu) and its backward
-// (ssd_scan/backward.cu): the split of a float32 value into bf16 hi + lo,
-// cp.async copies into the 128-byte swizzled tiles that wgmma reads,
-// wgmma's shared-memory descriptor, fences, and the m64n64k16 bf16 products
-// with float32 accumulation, each operand from shared memory (K-major, or
-// MN-major through the transpose bit) or A from registers; and the chunk's
-// cumsum and a tile's loads into registers that both ends share.
+// (ssd_scan/backward.cu), and by the flash-attention backward
+// (flash_attention/backward.cu): the split of a float32 value into bf16 hi
+// + lo, cp.async copies into the 128-byte swizzled tiles that wgmma reads,
+// wgmma's shared-memory descriptor, fences and waits, and the m64n64k16
+// bf16 products with float32 accumulation, each operand from shared memory
+// (K-major, or MN-major through the transpose bit) or A from registers;
+// and the chunk's cumsum and a tile's loads into registers that both ends
+// of the SSD scan share.
 #pragma once
 
 #include <cstdint>
@@ -25,6 +27,11 @@ __device__ __forceinline__ uint32_t bits(bf16 a, bf16 b) {
   uint32_t u;
   memcpy(&u, &v, sizeof(u));
   return u;
+}
+
+// two float32 values rounded to bf16 and packed (the first in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bits(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
 }
 
 // (a, b) = hi + lo with hi = bf16(v) and lo = bf16(v - hi), packed in pairs
@@ -111,6 +118,15 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit_wait() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// the products issued since the last commit as one group; then wait until
+// at most N groups are still running
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving reads or writes of accumulator registers
 // across the asynchronous products

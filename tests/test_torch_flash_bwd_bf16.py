@@ -1,0 +1,188 @@
+"""The bfloat16 ``flash_attention`` backward's arithmetic, checked on the CPU.
+
+``backward.cu``'s bfloat16 entry runs every product on the tensor cores in
+bfloat16 with float32 accumulation.  S = Q K^T and dP = dO V^T take the
+bfloat16 inputs as they are; P = exp(s - lse) (the forward's log-sum-exp,
+the logits scaled and soft-capped as the forward caps them) and dS = P
+scale (1 - tanh^2) (dP - D) are formed in float32, with D = rowsum(dO O)
+from the forward's bfloat16 output, and rounded to bfloat16 as the operand
+of dV += P^T dO, dK += dS^T Q and dQ += dS K.  dK and dV are summed over
+64-row query tiles in order and, within each, over the heads of a slice of
+the G heads in order; the slices' float32 partials are then added in slice
+order (the slice count as the kernel picks it on a 132-SM card).  dQ is
+summed over 64-key tiles in order.
+
+``_bwd_bf16_emulation`` is that arithmetic in float32 torch.  It is held
+against the plain version (``ref.attention_bwd``, the float32 formulas)
+under the kernel's own gate (``tests/test_torch_train_cuda.py``'s
+``_assert_close(flash=True)``: 1e-2 max|plain| + 2^-6 |plain|) over
+``test_torch_flash_grad.CASES`` and ``test_torch_train_cuda.FLASH_CASES`` in
+bfloat16 and RecurrentGemma-9B's layout at reduced lengths (MQA, G 16, d
+256, a window below sq, sq not a multiple of the tile), and once against
+the JAX package's ``jax.vjp`` of ``attention_core``, on inputs made with
+numpy from a seed.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.models.attention import attention_core
+from repro_torch.kernels.flash_attention import ref
+
+from test_torch_flash_grad import CASES as GRAD_CASES
+from test_torch_train_cuda import FLASH_CASES
+
+TILE = 64                  # the kernels' key tile and query rows a step
+SMS = 132                  # an H100's multiprocessors
+LOG2E = 1.4426950408889634
+SENTINEL = 2**30
+NAMES = ("dq", "dk", "dv")
+
+# (b, sq, skv, kvh, G, dh, dv, window, cap, empty key slots)
+RG_CASES = [(1, 600, 600, 1, 16, 256, 256, 256, None, False),
+            (2, 333, 333, 1, 16, 256, 256, 100, None, False)]
+CASES = ([(b, sq, sq, kvh, G, dh, dv, w, cap, empty)
+          for b, sq, kvh, G, dh, dv, w, cap, empty, _ in GRAD_CASES]
+         + FLASH_CASES + RG_CASES)
+
+
+def _slices(b, sq, skv, kvh, G, dh, dv):
+    """The kernel's split of the G heads for the dK / dV grid (kv_slices in
+    backward.cu): about four blocks an SM, each slice's float32 partials
+    within dq's bytes."""
+    blocks = b * kvh * -(-skv // TILE)
+    s = min(-(-4 * SMS // blocks), G,
+            (2 * b * sq * kvh * G * dh) // (4 * b * skv * kvh * (dh + dv)))
+    return 1 if s < 2 else s
+
+
+def _bwd_bf16_emulation(q, k, v, q_pos, k_pos, window, cap, out, lse, do):
+    """The bfloat16 entry of the flash_attention backward in float32 torch:
+    q, k, v, out, do bfloat16, lse float32 (b, kvh, G, sq).  Returns (dq,
+    dk, dv) in bfloat16."""
+    b, sq, kvh, G, dh = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    dsum = (out.float() * dof).sum(-1).permute(0, 2, 3, 1)   # (b, kvh, G, sq)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf)
+    x = s * scale
+    dcap = torch.ones_like(x)
+    if cap is not None:
+        t = torch.tanh(x / cap)
+        x, dcap = t * cap, 1.0 - t * t
+    qp, kp = q_pos.long()[:, None], k_pos.long()[None, :]
+    keep = kp <= qp
+    if window is not None:
+        keep &= kp > qp - window
+    p = torch.where(keep, torch.exp2(x * LOG2E - (lse * LOG2E)[..., None]),
+                    torch.zeros(()))
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * dcap * scale * (dp - dsum[..., None])
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+
+    n_slices = _slices(b, sq, skv, kvh, G, dh, dv)
+    dk = torch.zeros(b, kvh, skv, dh)
+    dvv = torch.zeros(b, kvh, skv, dv)
+    for sl in range(n_slices):
+        pk, pv = torch.zeros_like(dk), torch.zeros_like(dvv)
+        for t0 in range(0, sq, TILE):
+            rows = slice(t0, t0 + TILE)
+            for g in range(sl * G // n_slices, (sl + 1) * G // n_slices):
+                pk += torch.einsum("bkqs,bqkd->bksd", ds16[:, :, g, rows],
+                                   qf[:, rows, :, g])
+                pv += torch.einsum("bkqs,bqkd->bksd", p16[:, :, g, rows],
+                                   dof[:, rows, :, g])
+        dk += pk
+        dvv += pv
+    dq = torch.zeros(b, sq, kvh, G, dh)
+    for k0 in range(0, skv, TILE):
+        cols = slice(k0, k0 + TILE)
+        dq += torch.einsum("bkgqs,bskd->bqkgd", ds16[..., cols], kf[:, cols])
+    return (dq.bfloat16(), dk.permute(0, 2, 1, 3).bfloat16(),
+            dvv.permute(0, 2, 1, 3).bfloat16())
+
+
+def _inputs(case, seed=0):
+    """bf16 q, k, v, do (numpy draws), positions (q a suffix of k), and the
+    forward's bf16 output and float32 log-sum-exp."""
+    b, sq, skv, kvh, G, dh, dv, window, cap, empty = case
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .bfloat16()
+    q, k, v = draw(b, sq, kvh, G, dh), draw(b, skv, kvh, dh), \
+        draw(b, skv, kvh, dv)
+    do = draw(b, sq, kvh, G, dv)
+    q_pos = torch.arange(skv - sq, skv, dtype=torch.int32)
+    k_pos = torch.arange(skv, dtype=torch.int32)
+    if empty:
+        k_pos[skv // 2:] = SENTINEL
+    out = ref.attention(q, k, v, q_pos, k_pos, window, cap)
+    lse = ref.attention_lse(q, k, q_pos, k_pos, window, cap)
+    return q, k, v, q_pos, k_pos, window, cap, out, lse, do
+
+
+def _within_gate(name, got, want):
+    """tests/test_torch_train_cuda.py's bf16 flash gate."""
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
+    g, w = got.float(), want.float()
+    tol = 1e-2 * float(w.abs().max()) + 2.0 ** -6 * w.abs()
+    bad = (g - w).abs() > tol
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} entries off, max abs err "
+        f"{float((g - w).abs().max())}")
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bf16_emulation_within_the_gate(case):
+    q, k, v, q_pos, k_pos, window, cap, out, lse, do = _inputs(case)
+    got = _bwd_bf16_emulation(q, k, v, q_pos, k_pos, window, cap, out, lse,
+                              do)
+    want = ref.attention_bwd(q, k, v, q_pos, k_pos, window, cap, do)
+    for name, g, w in zip(NAMES, got, want):
+        assert not bool(torch.isnan(g.float()).any()), name
+        _within_gate(name, g, w)
+    if case[-1]:        # every empty slot's key and value take no gradient
+        empty = k_pos == SENTINEL
+        assert bool((got[1][:, empty] == 0).all())
+        assert bool((got[2][:, empty] == 0).all())
+
+
+def test_bf16_emulation_against_the_reference_vjp():
+    """RecurrentGemma-9B's layout at 500 queries (one chunk of the core, not
+    a multiple of the tile) against jax.vjp of attention_core in bf16."""
+    case = (1, 500, 500, 1, 16, 256, 256, 200, None, False)
+    q, k, v, q_pos, k_pos, window, cap, out, lse, do = _inputs(case, seed=4)
+    got = _bwd_bf16_emulation(q, k, v, q_pos, k_pos, window, cap, out, lse,
+                              do)
+
+    def f(q_, k_, v_):
+        return attention_core(q_, k_, v_, jnp.asarray(q_pos.numpy()),
+                              jnp.asarray(k_pos.numpy()), window=window,
+                              cap=cap)
+
+    def to_jax(t):
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+    _, vjp = jax.vjp(f, to_jax(q), to_jax(k), to_jax(v))
+    want = [torch.from_numpy(np.array(g.astype(jnp.float32)))
+            .bfloat16() for g in vjp(to_jax(do))]
+    for name, g, w in zip(NAMES, got, want):
+        _within_gate(name, g, w)
+
+
+def test_slices_split_the_train_call():
+    """At RecurrentGemma-9B's train call the G heads split in four (128
+    key tiles, 512 dK / dV blocks: as many partials as dq's bytes hold);
+    where dq's bytes cannot hold two slices' partials, or four blocks an
+    SM are reached already, one slice."""
+    assert _slices(2, 4096, 4096, 1, 16, 256, 256) == 4
+    assert _slices(1, 256, 256, 1, 1, 64, 64) == 1
+    assert _slices(1, 64, 8192, 4, 4, 64, 64) == 1

@@ -227,7 +227,8 @@ FLASH_CASES = [(2, 256, 256, 2, 2, 64, 64, None, None, False),
                (1, 128, 128, 4, 1, 192, 128, None, None, False),
                (1, 512, 512, 1, 1, 128, 128, 64, 30.0, False),
                (1, 200, 333, 1, 4, 128, 64, 100, None, True),
-               (2, 130, 130, 1, 2, 48, 80, 50, None, False)]
+               (2, 130, 130, 1, 2, 48, 80, 50, None, False),
+               (1, 700, 700, 1, 16, 256, 256, 40, None, False)]
 
 
 def _flash_inputs(case, dtype, dev, seed=0):
