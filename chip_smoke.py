@@ -306,17 +306,21 @@ Phases, each printed as one JSON line:
            vap_accum also at the train path's largest leaf.  The
            rglru_scan backward at the train_rg path's first call in each
            dtype (2 x 4,096 x 4,096: the unit's bfloat16, the tail's
-           float32) and at stress shapes (an initial state and dh_last, w
-           50, l 1, the sqrt clamp's region, 333 steps at w 4,096; both
-           dtypes), and its bare recurrence's entry; the flash_attention
+           float32; from the path's own saved states, with its kernels'
+           registers and shared memory and their device time a call by
+           entry from train_rg's profiled step) and at stress shapes (an
+           initial state and dh_last, w 50, l 1, the sqrt clamp's region,
+           333 steps at w 4,096; both dtypes; each also without states),
+           and its bare recurrence's entry, dx, dr, di and dinitial (the
+           bare entry's every output) bitwise; the flash_attention
            backward at the path's first call (bfloat16, 2 x 4,096 x 1 x 16
            x 256, window 2,048, with the bfloat16 kernels' registers and
            shared memory) and at stress shapes (softcap, G 1-4, dv != dh,
            empty key slots and rows that see no key, ragged sq / skv, no
            window, the path's heads and width at 700 positions; both
            dtypes): each against its plain version on the card (rglru:
-           1e-4 max|plain| + 1e-3 |plain|, + 2^-6 |plain| for a bfloat16
-           output; flash: the same in float32, 1e-2 max|plain| + 2^-6
+           dΛ to 1e-4 max|plain| + 1e-3 |plain|, + 2^-6 |plain| for a
+           bfloat16 output; flash: the same in float32, 1e-2 max|plain| + 2^-6
            |plain| in bfloat16), run twice and failing where the two
            differ in bits (every backward check does), with the
            library's time where one call computes it (flash: the backward
@@ -1099,7 +1103,8 @@ def path_run(dev, keep_first=False):
     in ``run["rglru_scan_by_entry"]``), the shape
     of every call noted (``run["calls"]``; vap_accum's with the max it
     returned; with ``keep_first``, an LLM kernel's first call in each dtype
-    keeps its inputs in ``run["first"][(kernel, dtype)]``), peak device
+    keeps its inputs in ``run["first"][(kernel, dtype)]``, a parameter's
+    as a copy), peak device
     memory reset."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ps_apply import ops as apply_ops
@@ -1135,8 +1140,16 @@ def path_run(dev, keep_first=False):
             run["calls"][name].append((_dname(args[0].dtype), tuple(
                 tuple(a.shape) for a in args
                 if isinstance(a, torch.Tensor))))
-            if keep_first:
-                run["first"].setdefault((name, args[0].dtype), (args, kw))
+            key = (name, args[0].dtype)
+            if keep_first and key not in run["first"]:
+                # a parameter (a leaf that requires grad) is updated in
+                # place by the optimizer later in the run: keep its value
+                # at this call, as the activations and the forward's
+                # states it is checked with are
+                run["first"][key] = (tuple(
+                    a.detach().clone() if isinstance(a, torch.Tensor)
+                    and a.is_leaf and a.requires_grad else a
+                    for a in args), kw)
             return orig[name](*args, **kw)
         return call
 
@@ -3058,10 +3071,11 @@ TRAIN_RG_REDUCED = {
     "replicas": "1 (the reference's mesh=None step): the float32 master, "
                 "Adam's moments and δ of one replica take 32.8 GB, two "
                 "would take 65.6 GB before any gradient"}
-RGLRU_BWD_ENTRY = "one thread a lane: the forward's states recomputed (a " \
-                  "saved one every 16 steps), then a reverse sweep a " \
-                  "chunk at a time; dΛ summed over the batch rows by a " \
-                  "second launch"
+RGLRU_BWD_ENTRY = "time-parallel: g's chain alone (r and dh streamed newest " \
+                  "first by TMA, a thread a lane), then every 32-step " \
+                  "chunk at once (a thread a (row, lane, chunk), its tiles " \
+                  "by TMA) from the state the forward saved entering it, " \
+                  "then dΛ's partials summed in order (three launches)"
 FLASH_BWD_ENTRY = {
     torch.bfloat16: "wgmma: D = rowsum(dO O); dk / dv per 64-key tile and "
                     "slice of the G heads (K, V kept, Q, dO streamed by "
@@ -3072,39 +3086,52 @@ FLASH_BWD_ENTRY = {
     torch.float32: "float32 pipes: D = rowsum(dO O), then dk / dv per "
                    "32-key tile walking the band's query tiles and the G "
                    "heads, then dq per 32-row tile (three launches)"}
-RGLRU_BWD_KERNELS = re.compile(r"rglru_bwd_(dparam_)?kernel")
+RGLRU_BWD_KERNELS = re.compile(r"rglru_bwd_(chain|chunk|dparam)_kernel")
 FLASH_BWD_KERNELS = re.compile(r"flash_bwd_(dot|dkdv|dq|kv_wgmma|sum|q_wgmma)"
                                r"_kernel")
 FLASH_FWD_KERNELS = re.compile(r"flash_(wgmma|fwd)_kernel")
 
 
 def check_rglru_bwd(dev, x, r_gate, i_gate, a_param, initial, dh,
-                    dh_last=None, c=8.0):
-    """The rglru_scan backward against its plain version on the card
-    (``ref.rglru_bwd``: the forward's loop, then an explicit reverse sweep
-    in float32); twice for the same bits; both timed.  The bound counts the
-    bytes it must move (x, r, i, dh read and dx, dr, di written once, Λ and
-    dΛ, the states given or returned) and ~31 float32 operations an element
-    (the gates and the step again, the reverse step and the chain)."""
+                    dh_last=None, c=8.0, states=None):
+    """The rglru_scan backward from the forward's ``states`` (the train
+    path's own where it gives them, else the forward's launch writes them
+    first) against its plain version on the card (``ref.rglru_bwd``: the
+    forward's loop, then an explicit reverse sweep in float32): dx, dr, di
+    and dinitial bitwise, dΛ (summed in the kernel's order) within BWD_TOL;
+    twice for the same bits, and once without states for the same bits;
+    timed from the states.  The bound counts the bytes it must move (x, r,
+    i, dh read and dx, dr, di written once, Λ and dΛ, the states given or
+    returned) and ~31 float32 operations an element (the gates and the step
+    again, the reverse step and the chain)."""
     from repro_torch.kernels.rglru_scan import ops, ref
 
     args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
                  for a in (x, r_gate, i_gate, a_param, initial, dh, dh_last,
                            c))
-    got = ops.rglru_bwd(*args)
+    if states is None:
+        states = ops.rglru_with_states(*args[:5], c)[2]
+    got = ops.rglru_bwd(*args, states=states)
     want = ref.rglru_bwd(*args)
     torch.cuda.synchronize()
     ok, err, need = _bwd_close(got, want, BWD_TOL)
-    if not ok:
+    bitwise = _same_bits(got[:3] + got[4:], want[:3] + want[4:])  # but dΛ
+    if not (ok and bitwise):
         raise AssertionError(f"rglru_bwd {tuple(x.shape)} {x.dtype}: kernel "
-                             f"!= plain (max abs err {err})")
-    same = _same_bits(got, ops.rglru_bwd(*args))
+                             f"!= plain (max abs err {err}; dx, dr, di, "
+                             f"dinitial bitwise: {bitwise})")
+    same = _same_bits(got, ops.rglru_bwd(*args, states=states))
     if not same:
         raise AssertionError(f"rglru_bwd {tuple(x.shape)} {x.dtype}: two "
                              f"calls differ in bits")
+    without = _same_bits(got, ops.rglru_bwd(*args))
+    if not without:
+        raise AssertionError(f"rglru_bwd {tuple(x.shape)} {x.dtype}: "
+                             f"without the forward's states the bits differ")
     del want
     big = x.numel() > 10_000_000
-    ms = cuda_ms(lambda: ops.rglru_bwd(*args), reps=10 if big else REPS)
+    ms = cuda_ms(lambda: ops.rglru_bwd(*args, states=states),
+                 reps=10 if big else REPS)
     plain_ms = cuda_ms(lambda: ref.rglru_bwd(*args), reps=3 if big else 5,
                        warmup=1)
     esize = x.element_size()
@@ -3118,33 +3145,43 @@ def check_rglru_bwd(dev, x, r_gate, i_gate, a_param, initial, dh,
             "entry": ops.RGLRU_BWD_ENTRIES[x.dtype],
             "design": RGLRU_BWD_ENTRY, "max_abs_err": err,
             "least_abs_factor": need,
-            "tolerance": f"{BWD_TOL[x.dtype][0]} max|plain| + "
+            "tolerance": f"dx, dr, di, dinitial bitwise; dΛ "
+                         f"{BWD_TOL[x.dtype][0]} max|plain| + "
                          f"{BWD_TOL[x.dtype][1]:.5f} |plain|",
-            "same_bits_twice": same, "ms": ms, "plain_ms": plain_ms,
+            "bitwise_but_dlambda": bitwise, "same_bits_twice": same,
+            "same_bits_without_states": without, "ms": ms,
+            "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms}
 
 
 def check_linear_recurrence_bwd(dev, a, b, initial, dh, dh_last=None):
     """The bare recurrence's backward entry against its plain version on
-    the card, as check_rglru_bwd."""
+    the card, as check_rglru_bwd: da, db and dinitial bitwise."""
     from repro_torch.kernels.rglru_scan import ops, ref
 
     args = (a, b, initial, dh, dh_last)
-    got = ops.linear_recurrence_bwd(*args)
+    states = ops.linear_recurrence_with_states(a, b, initial)[2]
+    got = ops.linear_recurrence_bwd(*args, states=states)
     want = ref.linear_recurrence_bwd(*args)
     torch.cuda.synchronize()
     ok, err, need = _bwd_close(got, want, BWD_TOL)
-    if not ok:
+    bitwise = _same_bits(got, want)
+    if not (ok and bitwise):
         raise AssertionError(f"linear_recurrence_bwd {tuple(a.shape)}: "
-                             f"kernel != plain (max abs err {err})")
-    same = _same_bits(got, ops.linear_recurrence_bwd(*args))
+                             f"kernel != plain (max abs err {err}, bitwise "
+                             f"{bitwise})")
+    same = _same_bits(got, ops.linear_recurrence_bwd(*args, states=states))
     if not same:
         raise AssertionError(f"linear_recurrence_bwd {tuple(a.shape)}: two "
                              f"calls differ in bits")
+    without = _same_bits(got, ops.linear_recurrence_bwd(*args))
+    if not without:
+        raise AssertionError(f"linear_recurrence_bwd {tuple(a.shape)}: "
+                             f"without the forward's states the bits differ")
     del want
     big = a.numel() > 10_000_000
-    ms = cuda_ms(lambda: ops.linear_recurrence_bwd(*args))
+    ms = cuda_ms(lambda: ops.linear_recurrence_bwd(*args, states=states))
     plain_ms = cuda_ms(lambda: ref.linear_recurrence_bwd(*args),
                        reps=3 if big else 5, warmup=1)
     nbytes = 4 * (5 * a.numel() + sum(
@@ -3154,7 +3191,9 @@ def check_linear_recurrence_bwd(dev, a, b, initial, dh, dh_last=None):
                      + (" initial" if initial is not None else "")
                      + (" dh_last" if dh_last is not None else ""),
             "entry": "linear_recurrence_bwd_f32", "max_abs_err": err,
-            "least_abs_factor": need, "same_bits_twice": same, "ms": ms,
+            "least_abs_factor": need, "bitwise": bitwise,
+            "same_bits_twice": same, "same_bits_without_states": without,
+            "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_share": bound_ms / ms}
 
@@ -3163,8 +3202,8 @@ def rglru_bwd_stress_cases(dev):
     """Both fused entries with an initial state and dh_last, w not a
     multiple of 8 (rows the forward pads for TMA), l = 1, and the sqrt
     clamp's region (a within 1e-12 of 1: the forward's check_rglru_sqrt
-    domain's lower end), each twice for the same bits; then the bare
-    recurrence's entry."""
+    domain's lower end), each twice for the same bits, from the forward's
+    states and without them; then the bare recurrence's entry."""
     g = torch.Generator(device=dev).manual_seed(13)
 
     def randn(*shape, dtype=torch.float32):
@@ -3674,13 +3713,25 @@ def main() -> None:
     cases["flash_attention_bwd"] = ([check_flash_bwd(dev, *a, **kw)]
                                     + flash_bwd_stress_cases(dev))
     rg_prof = train_rg_line["profiled"]
-    for name, pattern in (("rglru_scan_bwd", RGLRU_BWD_KERNELS),
-                          ("flash_attention_bwd", FLASH_BWD_KERNELS)):
-        n_calls = max(rg_prof["launches"][name], 1)
-        cases[name][0]["device_ms_per_call_by_kernel"] = {
+    n_calls = max(rg_prof["launches"]["flash_attention_bwd"], 1)
+    cases["flash_attention_bwd"][0]["device_ms_per_call_by_kernel"] = {
+        k: v * 1e3 / n_calls for k, v in rg_prof["backward_by_name"].items()
+        if FLASH_BWD_KERNELS.search(k)}
+    # the RG-LRU backward's by entry: the profiled step made want_per_step's
+    # calls of each, its kernels told apart by their element type
+    for case, entry in zip(cases["rglru_scan_bwd"][:2],
+                           ("rglru_bwd_bf16", "rglru_bwd_f32")):
+        n_calls = max(train_rg_line["want_per_step"][entry], 1)
+        bf16_kernels = entry.endswith("bf16")
+        case["device_ms_per_call_by_kernel"] = {
             k: v * 1e3 / n_calls
             for k, v in rg_prof["backward_by_name"].items()
-            if pattern.search(k)}
+            if RGLRU_BWD_KERNELS.search(k)
+            and ("__nv_bfloat16" in k) == bf16_kernels}
+        case["device_ms_per_call"] = sum(
+            case["device_ms_per_call_by_kernel"].values())
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    cases["rglru_scan_bwd"][0]["kernel_attrs"] = rg_ops.bwd_attrs(dev)
     del first_rg, a, kw
     torch.cuda.empty_cache()
     train_vap = check_vap_accum(dev, (TRAIN_REPLICAS, 50_280, 768),

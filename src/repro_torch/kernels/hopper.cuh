@@ -143,6 +143,30 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// (b, l, w) elements (bf16 or float32) at row stride ``wp`` (>= w, a
+// multiple of 16 bytes), read or written in boxes of ``lanes`` x ``steps`` of
+// one batch row; coordinates past the tensor read as zeros (the RG-LRU's
+// forward and backward)
+inline CUresult tensor_map_blw(EncodeTiled encode, CUtensorMap* map,
+                               const void* ptr, bool bf16, int64_t b,
+                               int64_t l, int64_t w, int64_t wp,
+                               uint32_t lanes, uint32_t steps) {
+  const uint64_t es = bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(l),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(wp * es),
+                                 static_cast<cuuint64_t>(wp * l * es)};
+  const cuuint32_t box[3] = {lanes, steps, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                3, const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 // a contiguous bf16 (batch, seq, heads, d) tensor as the 4-D map (d, heads,
 // seq, batch), read in boxes of 64 columns x ``rows`` positions of one head
 // with the 128-byte swizzle that wgmma reads; coordinates past the tensor

@@ -13,6 +13,9 @@ associative scan instead, which rounds in another order.  The gate math
 state recomputed with ``linear_recurrence``'s loop, then an explicit
 reverse sweep in float32 (autograd through the loop's per-step writes
 is too slow at the train shape to serve as the card's plain version).
+``linear_recurrence_states`` / ``rglru_states`` are the plain versions of
+the states the forward kernel writes for the backward: the loop's float32
+state entering every chunk of steps.
 """
 from __future__ import annotations
 
@@ -90,6 +93,27 @@ def _states_before(a: torch.Tensor, b: torch.Tensor,
     first = (torch.zeros_like(s[:, :1]) if initial is None
              else initial.float()[:, None])
     return torch.cat([first, s[:, :-1]], dim=1)
+
+
+def linear_recurrence_states(a: torch.Tensor, b: torch.Tensor,
+                             initial: Optional[torch.Tensor] = None,
+                             chunk: int = 32) -> torch.Tensor:
+    """The float32 state entering every ``chunk`` steps, (batch, ceil(l /
+    chunk), w): s_{kc-1} for chunk k (the initial state or zeros for the
+    first), from ``linear_recurrence``'s loop."""
+    if a.shape[1] == 0:
+        return torch.empty((a.shape[0], 0, a.shape[2]), dtype=torch.float32,
+                           device=a.device)
+    return _states_before(a.float(), b.float(),
+                          initial)[:, ::chunk].contiguous()
+
+
+def rglru_states(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
+                 a_param: torch.Tensor, initial: Optional[torch.Tensor] = None,
+                 c: float = 8.0, chunk: int = 32) -> torch.Tensor:
+    """:func:`linear_recurrence_states` of :func:`rglru`'s recurrence."""
+    a, gated = rglru_gates(x, r_gate, i_gate, a_param, c)
+    return linear_recurrence_states(a, gated, initial, chunk)
 
 
 def linear_recurrence_bwd(a: torch.Tensor, b: torch.Tensor,

@@ -15,7 +15,11 @@ passes each case).
 
 Also: each ``Function`` on the card gives the plain version's gradients and
 counts its launches, and under ``no_grad`` the same forward without a
-graph; each backward is the same bits run to run; the flash forward's
+graph; each backward is the same bits run to run; the RG-LRU backward's dx,
+dr, di and dinitial (and the bare recurrence's every output) are the plain
+version's bits, with the forward's saved states and without; the forward
+writes those states, bitwise ``ref.rglru_states``, only where a graph is
+wanted; its kernels report no spill; the flash forward's
 log-sum-exp against ``ref.attention_lse``; reduced RecurrentGemma trains on
 the card through ``make_train_step`` and ``launch.train.run``.
 """
@@ -201,6 +205,72 @@ def test_rglru_backward_kernel_matches_plain(case, dtype, cuda):
                for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", RG_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_rglru_backward_kernel_is_the_plain_bits(case, dtype, cuda):
+    """dx, dr, di and dinitial are the plain version's bits on the card
+    (the same per-element operations, g's chain in the same order), with
+    the forward's states and without them (the wrapper then runs the
+    forward's launch first); only dΛ is summed in the kernel's own order.
+    l off the 32-step chunk (100, 37, 333, 1) and the sqrt clamp's region
+    are among the cases."""
+    args = _rg_inputs(case, dtype, cuda, seed=11)
+    _, _, states = rg_ops.rglru_with_states(*args[:5])
+    got = rg_ops.rglru_bwd(*args, states=states)
+    want = rg_ref.rglru_bwd(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(RG_NAMES, got, want):
+        if w is None:
+            assert g is None
+        elif name == "da_param":
+            _assert_close(name, g, w)
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+    without = rg_ops.rglru_bwd(*args)
+    assert all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, without))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [RG_CASES[1], RG_CASES[3], RG_CASES[4]],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_rglru_forward_writes_the_plain_states(case, dtype, cuda):
+    """With a graph wanted the forward's launch also writes the state
+    entering every chunk, saved for the backward: bitwise the plain
+    helper's on the card.  Without a graph (serving) it writes none, and h
+    and h_last keep their bits."""
+    x, r, i, lam, s0, dh, dl = _rg_inputs(case, dtype, cuda, seed=12)
+    leaves = [t.clone().requires_grad_(True) for t in (x, r, i, lam)]
+    f0 = rg_ops.launches
+    h, h_last = rg_ops.rglru(*leaves, s0)
+    assert rg_ops.launches == f0 + 1
+    states = h.grad_fn.saved_tensors[-1]
+    assert states.dtype == torch.float32 and states.shape == (
+        x.shape[0], -(-x.shape[1] // rg_ops.CHUNK), x.shape[2])
+    assert torch.equal(states, rg_ref.rglru_states(x, r, i, lam, s0))
+    with torch.no_grad():
+        serve = rg_ops.rglru(x, r, i, lam, s0)
+    want = rg_ref.rglru(x, r, i, lam, s0)
+    for a, b, c in zip(serve, (h.detach(), h_last.detach()), want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    a = torch.rand(x.shape, device=cuda, requires_grad=True)
+    hh, _ = rg_ops.linear_recurrence(a, r.float(), s0)
+    assert torch.equal(hh.grad_fn.saved_tensors[-1],
+                       rg_ref.linear_recurrence_states(a.detach(), r.float(),
+                                                       s0))
+
+
+def test_rglru_backward_kernels_do_not_spill(cuda):
+    attrs = rg_ops.bwd_attrs(cuda)
+    assert set(attrs) == set(rg_ops.BWD_KERNELS)
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, (name, a)
+        assert 0 < a["registers"] <= 255 and a["blocks_per_sm"] >= 1, (name, a)
+        assert a["static_smem_bytes"] + a["dynamic_smem_bytes"] <= 232448
+
+
 @pytest.mark.parametrize("shape", [(2, 64, 128), (1, 33, 50), (3, 1, 8)])
 def test_linear_recurrence_backward_kernel_matches_plain(shape, cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -216,6 +286,7 @@ def test_linear_recurrence_backward_kernel_matches_plain(shape, cuda):
     want = rg_ref.linear_recurrence_bwd(a, bb, s0, dh, dl)
     for name, g, w_ in zip(("da", "db", "dinitial"), got, want):
         _assert_close(name, g, w_)
+        assert torch.equal(g, w_), name
     assert all(torch.equal(x, y) for x, y in zip(
         got, rg_ops.linear_recurrence_bwd(a, bb, s0, dh, dl)))
 
