@@ -163,29 +163,44 @@ Phases, each printed as one JSON line:
            send order).
   serve    LLM serving, as examples/serve_demo.py drives the JAX package:
            make_prefill_step then make_serve_step (greedy decode against
-           ring KV caches), for RecurrentGemma-9B and Mamba2-130M at their
-           full published widths in bfloat16, random weights drawn on the
-           card from --seed (default 0); 4 requests of 4,096 prompt tokens
-           (drawn from the seed), 32 generated tokens each.  Per model: its
+           ring KV caches), for RecurrentGemma-9B, Mamba2-130M, Gemma2-9B
+           and DeepSeek-V2-Lite-16B at their full published widths and
+           depths in bfloat16, random weights drawn on the card from
+           --seed (default 0); 16,384 prompt tokens a model (drawn from
+           the seed; 4 requests of 4,096, Gemma2-9B 2 of 8,192 so that its
+           4,096-token window masks on the local layers), 32 generated
+           tokens each.  Per model: its
            parameters (the tree without head_f32, the float32 master copy
            of the head, whose bytes are reported apart; param_bytes is the
            tree's memory, head included), prefill ms,
            decode ms a step, tokens a second, peak device memory, and from
            a profiled repeat the device's busy time, idle share, time by
-           kernel name, PyTorch's elementwise kernels' total and
-           rglru_scan's own (for Mamba2 ssd_scan's own, its three kernels by
-           name, and its share of busy; each must show whenever its kernel
-           launched), and the LLM kernels' calls by dtype (RecurrentGemma's
-           rglru: bfloat16 in the stacked units, float32 in the tail).
+           kernel name, PyTorch's elementwise kernels' total,
+           flash_attention's and rglru_scan's own (for Mamba2 ssd_scan's
+           own, its three kernels by name, and its share of busy; each
+           must show whenever its kernel launched), and the LLM kernels'
+           calls by dtype (RecurrentGemma's rglru: bfloat16 in the stacked
+           units, float32 in the tail) and flash_attention's by window.
+           For DeepSeek's MoE a prefill and 4 decode steps again with
+           every layer's routing noted: the pairs dropped past capacity at
+           the published capacity factor 1.25 (C 1,920 in the prefill, 1
+           in decode, where T is the batch).
            Launch counters (rglru_scan's also by entry) set to 0 just
            before the prefill and read just after it and after the decode.
            Checks: one launch a layer per prefill (RecurrentGemma:
            rglru_scan 26, its entries' counts summing to it, flash_attention
-           12; Mamba2: ssd_scan 24) and none in decode; finite logits; every
-           token in the vocabulary; the first decode step's logits against
-           a full forward over prompt + that token, within 5e-2 of the
-           logits' largest magnitude (bfloat16: the two paths round at
-           other places through 38 and 24 layers).
+           12; Mamba2: ssd_scan 24; Gemma2: flash_attention 42, 21 with
+           the window and 21 without; DeepSeek: flash_attention 27, MLA's
+           q / k 192 and v 128 wide) and none in decode; finite logits;
+           every token in the vocabulary; the first decode step's logits
+           against a full forward over prompt + that token, within 5e-2 of
+           the logits' largest magnitude (bfloat16: the two paths round at
+           other places through 26-42 layers).  DeepSeek's check runs at
+           capacity factor 8 (tests/test_decode_parity.py's), every MoE
+           layer's routes compared between the two paths: a request whose
+           chosen or kept experts differ in some layer (a near-tied route
+           flipped by bfloat16 rounding, printed with its probability gap)
+           is left out of the check, and the check fails if none is left.
   train    Mamba2-130M trained at full width and depth (24 layers, d 768,
            vocab 50,280; weights drawn on the card from --seed, float32
            masters, bfloat16 compute): 2 replicas stacked on the card, each
@@ -244,12 +259,17 @@ Phases, each printed as one JSON line:
            ingest", whose time, bound and index_add_ time the kernel
            table's ps_apply row carries as replica_ingest; the serve
            path's first call for the LLM kernels, and for rglru_scan also
-           the float32 tail's first call) and at stress shapes
-           (tests/test_kernels.py's cases for the LLM kernels, and for
-           flash_attention the bfloat16 kernel's edges: every head-dim
+           the float32 tail's first call; for flash_attention each served
+           model's first call of each window: RecurrentGemma's, Gemma2's
+           windowed and global (softcap 50, G 2, d 256), DeepSeek's MLA (G
+           1, q / k 192, v 128), the plain version over slices of the
+           batch where its float32 logits would pass 5 GB) and at stress
+           shapes (tests/test_kernels.py's cases for the LLM kernels, and
+           for flash_attention the bfloat16 kernel's edges: every head-dim
            tier, dv != dh, ragged sq / skv, a q suffix, 16 heads at d 256
            with a window and with a cap, one serve-like request, empty key
-           slots; for ps_apply
+           slots, and the attention of Qwen3-8B (32 / 8 heads) and
+           OLMoE-1B-7B (16 / 16) at 4 x 4,096, d 128, causal; for ps_apply
            a batch 40,000 deep with 2% sentinels in f64 and f32, and 4,096
            entries all on one row; for topk_mag 4,096, 65,536 and 1,048,576
            magnitudes: one block, and tiles with 4 and 8 merge passes).  The
@@ -272,8 +292,10 @@ Phases, each printed as one JSON line:
            version's (on the host for the parameter-server kernels, on the
            card for the LLM kernels), one PyTorch library call's on the card
            where one computes the same function (for vap_accum three eager
-           ops; for flash_attention scaled_dot_product_attention with the
-           window as a boolean mask; none for the two scans), and the least
+           ops; for flash_attention scaled_dot_product_attention, is_causal
+           for a window-less call over the same positions, else the window
+           as a boolean mask, none under a softcap; none for the two
+           scans), and the least
            time the card could take (bytes over 3.35 TB/s, or operations
            over the peak rate for the inputs' type, whichever is larger).
            ps_apply's ms is the call as the shard makes it (the grouping,
@@ -657,6 +679,14 @@ FLASH_ENTRY = {torch.bfloat16: "wgmma bf16 (tensor cores, TMA ring)",
 SSD_ENTRY = {torch.bfloat16: "wgmma bf16, hi/lo split (tensor cores; "
                              "chunk state, state pass, chunk scan)",
              torch.float32: "float32 pipes (one block per (b, h))"}
+# the attention of two served architectures that no smoke path runs, at the
+# serve shape (4 x 4,096, causal, bfloat16): Qwen3-8B's 32 query / 8 kv
+# heads and OLMoE-1B-7B's 16 / 16, both 128 wide
+FLASH_MODEL_STRESS = (
+    ("qwen3-8b attention (stress)", (4, 4096, 4096, 8, 4, 128, 128, None,
+                                     None)),
+    ("olmoe-1b-7b attention (stress)", (4, 4096, 4096, 16, 1, 128, 128,
+                                        None, None)))
 # the bfloat16 kernel's edges beyond tests/test_kernels.py's cases: each
 # head-dim tier (16-64, 65-128, 129-256, zero-padded), dv above and below
 # dh, sq and skv off the 128-row and 64-key tiles, a q suffix, 16 heads at d
@@ -676,15 +706,39 @@ def _dname(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+# the plain version's float32 logits of one call above this many bytes are
+# made over slices of the batch (each slice's its own call of the plain
+# version)
+FLASH_PLAIN_SLICE_BYTES = 5e9
+
+
+def flash_plain(q, k, v, q_pos, k_pos, **kw):
+    """The plain version (dense float32 attention) of one flash call, over
+    slices of the batch where one logits tensor of the whole call would pass
+    FLASH_PLAIN_SLICE_BYTES (Gemma2-9B's prefill: 2 x 16 heads x 8,192^2
+    float32 is 8.6 GB, and the plain version holds several)."""
+    from repro_torch.kernels.flash_attention import ref
+
+    b, sq, kvh, G, _ = q.shape
+    per_row = 4 * kvh * G * sq * k.shape[1]
+    step = max(1, int(FLASH_PLAIN_SLICE_BYTES // per_row))
+    if step >= b:
+        return ref.attention(q, k, v, q_pos, k_pos, **kw)
+    return torch.cat([ref.attention(q[i:i + step], k[i:i + step],
+                                    v[i:i + step], q_pos, k_pos, **kw)
+                      for i in range(0, b, step)], 0)
+
+
 def check_flash(dev, q, k, v, q_pos, k_pos, window=None, cap=None,
                 tol=FLASH_TOL):
     """Inputs on the card; the plain version (dense float32 attention) runs
-    on the card too.  ``tol``: {dtype: allclose's atol and rtol}."""
-    from repro_torch.kernels.flash_attention import ops, ref
+    on the card too (:func:`flash_plain`).  ``tol``: {dtype: allclose's
+    atol and rtol}."""
+    from repro_torch.kernels.flash_attention import ops
 
     kw = dict(window=window, cap=cap)
     got = ops.flash_attention(q, k, v, q_pos, k_pos, **kw)
-    want = ref.attention(q, k, v, q_pos, k_pos, **kw)
+    want = flash_plain(q, k, v, q_pos, k_pos, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     mean_abs_want = float(want.float().abs().mean())
@@ -699,17 +753,27 @@ def check_flash(dev, q, k, v, q_pos, k_pos, window=None, cap=None,
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, q_pos, k_pos, **kw))
     ms_with_lse = cuda_ms(lambda: ops.flash_attention(
         q, k, v, q_pos, k_pos, **kw, return_lse=True))
-    plain_ms = cuda_ms(lambda: ref.attention(q, k, v, q_pos, k_pos, **kw),
+    plain_ms = cuda_ms(lambda: flash_plain(q, k, v, q_pos, k_pos, **kw),
                        reps=5 if big else REPS, warmup=1 if big else 3)
     mask = k_pos[None, :].long() <= q_pos[:, None].long()
     if window is not None:
         mask &= k_pos[None, :].long() > q_pos[:, None].long() - window
-    library_ms = None
-    if cap is None:             # scaled_dot_product_attention has no softcap
+    # a window-less call over the same positions is causal attention, which
+    # the library takes as is_causal (its fastest form); others as a mask
+    causal = (window is None and sq == skv and torch.equal(
+        q_pos.long(), k_pos.long()) and torch.equal(
+        k_pos.long().cpu(), torch.arange(skv)))
+    library_ms, library = None, ("none: scaled_dot_product_attention "
+                                 "takes no softcap")
+    if cap is None:
         qs = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * G, sq, dh)
         ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        lkw = (dict(is_causal=True) if causal else dict(attn_mask=mask))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+            qs, ks, vs, enable_gqa=True, **lkw))
+        library = ("scaled_dot_product_attention(" + (
+            "is_causal=True" if causal else "attn_mask=window mask")
+            + ", enable_gqa=True)")
     pairs = int(mask.sum()) * b * kvh * G        # (query, key) pairs kept
     esize = q.element_size()
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * esize \
@@ -724,9 +788,7 @@ def check_flash(dev, q, k, v, q_pos, k_pos, window=None, cap=None,
             "max_abs_err": err, "mean_abs_plain": mean_abs_want,
             "tolerance": tol[q.dtype],
             "ms": ms, "ms_with_lse": ms_with_lse, "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "library": "scaled_dot_product_attention(attn_mask=window mask, "
-                       "enable_gqa=True)" if cap is None else None,
+            "library_ms": library_ms, "library": library,
             "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
 
 
@@ -926,6 +988,8 @@ def llm_stress_cases(dev):
                                for case in FLASH_BF16_EDGES]
     out["flash_attention"].append(flash(FLASH_BF16_EDGES[4], torch.bfloat16,
                                         sentinels=True))
+    out["flash_attention"] += [{"call": call, **flash(case, torch.bfloat16)}
+                               for call, case in FLASH_MODEL_STRESS]
     return out
 
 
@@ -1095,17 +1159,29 @@ class Sites:
                 for name in self.calls}
 
 
+def first_key(name, args, kw):
+    """The key an LLM kernel's call is kept and counted under: the kernel
+    and its dtype."""
+    return (name, args[0].dtype)
+
+
+def window_key(name, args, kw):
+    """:func:`first_key` and the call's attention window (None for the
+    other kernels and for a layer without one)."""
+    return (name, args[0].dtype, kw.get("window"))
+
+
 @contextlib.contextmanager
-def path_run(dev, keep_first=False):
+def path_run(dev, keep_first=False, key=first_key):
     """Drive one path inside the block: every kernel's launch counter set to
     0 just before and read just after (into ``run["launches"]``; the
     backwards' under their names in BACKWARDS, rglru_scan's also by entry
     in ``run["rglru_scan_by_entry"]``), the shape
     of every call noted (``run["calls"]``; vap_accum's with the max it
-    returned; with ``keep_first``, an LLM kernel's first call in each dtype
-    keeps its inputs in ``run["first"][(kernel, dtype)]``, a parameter's
-    as a copy), peak device
-    memory reset."""
+    returned; an LLM kernel's calls also counted by ``key(name, args, kw)``
+    in ``run["by_key"]``; with ``keep_first``, the first call under each
+    key keeps its inputs in ``run["first"][key]``, a parameter's as a
+    copy), peak device memory reset."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ps_apply import ops as apply_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
@@ -1120,7 +1196,8 @@ def path_run(dev, keep_first=False):
              "ssd_scan": "ssd_scan", "rglru_scan": "rglru"}
     orig = {k: getattr(mods[k], attrs[k]) for k in KERNELS}
     # the LLM kernels' first call keeps its inputs (references, no copy)
-    run = {"calls": {k: [] for k in KERNELS}, "first": {}, "mods": mods}
+    run = {"calls": {k: [] for k in KERNELS}, "first": {}, "mods": mods,
+           "by_key": collections.Counter()}
 
     def scatter_add_(dense, rows, delta, **kw):
         run["calls"]["ps_apply"].append((*dense.shape, rows.shape[0]))
@@ -1140,13 +1217,14 @@ def path_run(dev, keep_first=False):
             run["calls"][name].append((_dname(args[0].dtype), tuple(
                 tuple(a.shape) for a in args
                 if isinstance(a, torch.Tensor))))
-            key = (name, args[0].dtype)
-            if keep_first and key not in run["first"]:
+            k = key(name, args, kw)
+            run["by_key"][k] += 1
+            if keep_first and k not in run["first"]:
                 # a parameter (a leaf that requires grad) is updated in
                 # place by the optimizer later in the run: keep its value
                 # at this call, as the activations and the forward's
                 # states it is checked with are
-                run["first"][key] = (tuple(
+                run["first"][k] = (tuple(
                     a.detach().clone() if isinstance(a, torch.Tensor)
                     and a.is_leaf and a.requires_grad else a
                     for a in args), kw)
@@ -2431,35 +2509,125 @@ def run_apps_phase(dev):
 
 # Serving (examples/serve_demo.py's loop) at the full published widths.
 # The assigned prefill shape is prefill_32k (32 x 32,768, configs/shapes.py);
-# the smoke cuts it to 4 requests of 4,096 tokens so that both models and
-# the kernels' checks fit the script's time limit.
-SERVE_MODELS = ("recurrentgemma-9b", "mamba2-130m")
+# the smoke cuts it to 16,384 prompt tokens a model (4 requests of 4,096;
+# Gemma2-9B 2 of 8,192, so that its 4,096-token window masks on the local
+# layers) so that the models and the kernels' checks fit the script's time
+# limit.
+SERVE_MODELS = ("recurrentgemma-9b", "mamba2-130m", "gemma2-9b",
+                "deepseek-v2-lite-16b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4_096, 32
-SERVE_REDUCED = {"shape": "4 requests x 4,096 prompt tokens of the assigned "
-                          "prefill_32k (32 x 32,768)",
-                 "weights": "random, drawn on the card from the seed"}
+# (requests, prompt tokens) where a model's differ from the default
+SERVE_SHAPE = {"gemma2-9b": (2, 8_192)}
+SERVE_WEIGHTS = "random, drawn on the card from the seed"
 # one launch per layer of the kernel's kind, per prefill
 SERVE_LAUNCHES = {"recurrentgemma-9b": {"rglru_scan": 26,
                                         "flash_attention": 12},
-                  "mamba2-130m": {"ssd_scan": 24}}
+                  "mamba2-130m": {"ssd_scan": 24},
+                  "gemma2-9b": {"flash_attention": 42},
+                  "deepseek-v2-lite-16b": {"flash_attention": 27}}
+# flash_attention's prefill launches by window: Gemma2's 21 local (4,096)
+# and 21 global layers
+SERVE_FLASH_BY_WINDOW = {"recurrentgemma-9b": {2048: 12},
+                         "gemma2-9b": {4096: 21, None: 21},
+                         "deepseek-v2-lite-16b": {None: 27}}
 # bfloat16 decode against the full forward: the two paths round at other
 # places (cuBLAS picks other kernels for 1 and 4,097 rows; decode reads the
 # bfloat16 KV cache), and a few bfloat16 ulps carry through 38 / 24 layers
 PARITY_TOL = 5e-2
+# the decode-parity check's MoE capacity factor (test_decode_parity.py's),
+# so that the full forward's 16,388 tokens drop no pair where decode's four
+# would not
+PARITY_CAPACITY_FACTOR = 8.0
+
+
+def serve_shape(name):
+    return SERVE_SHAPE.get(name, (SERVE_BATCH, SERVE_PROMPT))
+
+
+def serve_reduced(name):
+    b, s = serve_shape(name)
+    return {"shape": f"{b} requests x {s:,} prompt tokens of the assigned "
+                     f"prefill_32k (32 x 32,768)",
+            "weights": SERVE_WEIGHTS}
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Inside the block, every MoE layer's routing of its input is noted
+    (``routes``: one dict a call, device tensors: ``ids`` (T, K) the chosen
+    experts, ``keep`` (T, K) whether each pair got a slot, ``gap`` (T,) the
+    K-th largest probability less the next one) before the layer runs."""
+    from repro_torch.models import moe
+
+    orig, routes = moe.moe_fwd, []
+
+    def moe_fwd(cfg, ctx, p, x):
+        m = cfg.moe
+        probs = moe.router_probs(p, x.reshape(-1, x.shape[-1]))
+        _, ids, keep, _, _ = moe.dispatch(m, probs)
+        top = torch.sort(probs, dim=-1, descending=True,
+                         stable=True).values
+        routes.append({"ids": ids.view(-1, m.top_k),
+                       "keep": keep.view(-1, m.top_k),
+                       "gap": top[:, m.top_k - 1] - top[:, m.top_k]})
+        return orig(cfg, ctx, p, x)
+
+    moe.moe_fwd = moe_fwd
+    try:
+        yield routes
+    finally:
+        moe.moe_fwd = orig
+
+
+def route_agreement(dec, full, rows, at):
+    """Compare decode's routes (one MoE call a layer, T = rows) with the
+    full forward's at token ``at`` of each row.  Returns (rows whose every
+    layer chose and kept the same experts, the flips, the drop
+    differences)."""
+    flips, drops, held = [], [], set(range(rows))
+    for layer, (d, f) in enumerate(zip(dec, full)):
+        f_ids = f["ids"].view(rows, -1, f["ids"].shape[-1])[:, at].cpu()
+        f_keep = f["keep"].view(rows, -1, f["keep"].shape[-1])[:, at].cpu()
+        f_gap = f["gap"].view(rows, -1)[:, at].cpu()
+        d_ids, d_keep, d_gap = (d[k].cpu() for k in ("ids", "keep", "gap"))
+        for r in range(rows):
+            chose = (sorted(d_ids[r].tolist()), sorted(f_ids[r].tolist()))
+            kept = (sorted(d_ids[r][d_keep[r]].tolist()),
+                    sorted(f_ids[r][f_keep[r]].tolist()))
+            if chose[0] != chose[1]:
+                flips.append({"layer": layer, "row": r, "decode": chose[0],
+                              "full_forward": chose[1],
+                              "gap_decode": float(d_gap[r]),
+                              "gap_full_forward": float(f_gap[r])})
+                held.discard(r)
+            elif kept[0] != kept[1]:
+                drops.append({"layer": layer, "row": r,
+                              "kept_decode": kept[0],
+                              "kept_full_forward": kept[1]})
+                held.discard(r)
+    return sorted(held), flips, drops
+
+
+# the flash kernel's serve calls held against its plain version, by (model,
+# window): the first call of each window in each model's prefill
+FLASH_PATH_CALLS = (("recurrentgemma-9b", 2048), ("gemma2-9b", 4096),
+                    ("gemma2-9b", None), ("deepseek-v2-lite-16b", None))
 
 
 def run_serve_phase(dev, seed):
     """Prefill then greedy decode for each model, weights and prompts drawn
-    from ``seed``; returns ({model: launches}, {kernel: the first call's
-    inputs}, lines)."""
+    from ``seed``; returns ({model: launches}, {(model, kernel, dtype,
+    window): the first call's inputs, on the host}, lines)."""
     from repro_torch.configs import InputShape, get_config
     from repro_torch.launch import steps
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.models.common import ShardCtx, tree_leaves
 
     lines, launches, first = {}, {}, {}
     for name in SERVE_MODELS:
         cfg = get_config(name)                      # dtype bfloat16
+        batch, prompt = serve_shape(name)
         torch.cuda.empty_cache()
         t = time.perf_counter()
         params = M.init_params(cfg, seed=seed, device="cuda")
@@ -2476,19 +2644,19 @@ def run_serve_phase(dev, seed):
             - (0 if head is None else head.numel())
         param_bytes = sum(x.numel() * x.element_size()
                           for x in tree_leaves(params))
-        shape = InputShape("serve", seq_len=SERVE_PROMPT + SERVE_GEN,
-                           global_batch=SERVE_BATCH, mode="prefill")
+        shape = InputShape("serve", seq_len=prompt + SERVE_GEN,
+                           global_batch=batch, mode="prefill")
         prefill_fn = steps.make_prefill_step(cfg, None, shape)
         serve_fn = steps.make_serve_step(cfg, None, shape)
         rng = np.random.default_rng(seed)
         prompts = torch.from_numpy(rng.integers(
-            1, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
+            1, cfg.vocab_size, (batch, prompt))).to(dev)
 
         def decode(nxt, caches, n_steps):
             toks = [nxt]
             for j in range(n_steps):
-                pos = torch.full((SERVE_BATCH,), SERVE_PROMPT + j,
-                                 dtype=torch.int32, device=dev)
+                pos = torch.full((batch,), prompt + j, dtype=torch.int32,
+                                 device=dev)
                 nxt, caches = serve_fn(params, caches,
                                        {"ids": nxt[:, None], "pos": pos})
                 toks.append(nxt)
@@ -2499,13 +2667,15 @@ def run_serve_phase(dev, seed):
         decode(nxt, caches, 1)
         del nxt, caches
 
-        with path_run(dev) as run:
+        with path_run(dev, key=window_key) as run:
             t = time.perf_counter()
             nxt, caches = prefill_fn(params, {"ids": prompts})
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t
             after_prefill = {k: m.launches for k, m in run["mods"].items()}
             rglru_by_entry = dict(run["mods"]["rglru_scan"].launches_by_entry)
+            flash_by_window = {w: n for (k, _, w), n in run["by_key"].items()
+                               if k == "flash_attention"}
             t = time.perf_counter()
             tokens, caches = decode(nxt, caches, SERVE_GEN - 1)
             torch.cuda.synchronize()
@@ -2519,11 +2689,14 @@ def run_serve_phase(dev, seed):
         tokens = tokens.cpu()
 
         # a profiled repeat: prefill and 4 decode steps; it keeps the LLM
-        # kernels' first call in each dtype for the kernels phase (held
-        # here, so that the timed run's peak memory does not count them)
+        # kernels' first call under each (kernel, dtype, window) for the
+        # kernels phase (held here, so that the timed run's peak memory does
+        # not count them; rglru_scan's and flash_attention's on the host, so
+        # that the next model's timed peak holds only what it held before:
+        # their inputs are packed, and come back with the same layout)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        with path_run(dev, keep_first=True) as rep, profile(
+        with path_run(dev, keep_first=True, key=window_key) as rep, profile(
                 activities=[ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
             nxt2, caches = prefill_fn(params, {"ids": prompts})
@@ -2531,59 +2704,103 @@ def run_serve_phase(dev, seed):
             torch.cuda.synchronize()
         prof_wall_s = time.perf_counter() - t
         for k, (args, kw) in rep["first"].items():
-            if k[0] == "rglru_scan":
-                # 1.2 GB of x, r, i wait on the host, so that the next
-                # model's timed peak holds only what it held before
-                args = tuple(a.cpu() for a in args)      # all tensors
-            first.setdefault(k, (args, kw))
+            if k[0] in ("rglru_scan", "flash_attention"):
+                args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                             for a in args)
+            first[(name,) + k] = (args, kw)
         del caches, rep
         device_s = device_seconds(prof)
         busy_s = sum(device_s.values())
         ssd_s = (ssd_scan_seconds(device_s, after_prefill["ssd_scan"])
                  if after_prefill["ssd_scan"] else None)
         rglru_s = rglru_scan_seconds(device_s, after_prefill["rglru_scan"])
+        flash_s = sum(v for k, v in device_s.items()
+                      if FLASH_FWD_KERNELS.search(k))
+        if after_prefill["flash_attention"] and not flash_s:
+            raise AssertionError(f"{name}: flash_attention launched but no "
+                                 f"device event matched its kernel's name")
 
-        # the first decode step against a full forward over prompt + token
         ctx = ShardCtx()
-        with torch.inference_mode():
-            logits_p, caches = M.prefill(cfg, ctx, params, prompts,
+        moe_line, nxt3 = None, None
+        if cfg.moe is not None:
+            # the MoE's drops at the published capacity factor: a prefill and
+            # 4 decode steps again with every layer's routes noted
+            with moe_routes() as routes:
+                nxt3, caches = prefill_fn(params, {"ids": prompts})
+                n_pre = len(routes)
+                decode(nxt3, caches, 4)
+            drops = [int((~r["keep"]).sum()) for r in routes]
+            pairs = [r["keep"].numel() for r in routes]
+            moe_line = {
+                "capacity_factor": cfg.moe.capacity_factor,
+                "capacity_prefill": moe.capacity(cfg.moe, batch * prompt),
+                "capacity_decode": moe.capacity(cfg.moe, batch),
+                "layers": n_pre,
+                "dropped_pairs_prefill": sum(drops[:n_pre]),
+                "pairs_prefill": sum(pairs[:n_pre]),
+                "dropped_pairs_decode_4_steps": sum(drops[n_pre:]),
+                "pairs_decode_4_steps": sum(pairs[n_pre:])}
+            del caches, routes
+
+        # the first decode step against a full forward over prompt + token;
+        # MoE at PARITY_CAPACITY_FACTOR, every layer's routes compared
+        pcfg = cfg if cfg.moe is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=PARITY_CAPACITY_FACTOR))
+        with torch.inference_mode(), moe_routes() as routes:
+            logits_p, caches = M.prefill(pcfg, ctx, params, prompts,
                                          capacity=shape.seq_len)
             tok0 = M.sample_greedy(ctx, logits_p)
+            routes.clear()
             logits_d, _ = M.decode_step(
-                cfg, ctx, params, tok0[:, None].long(),
-                torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int32,
-                           device=dev), caches)
+                pcfg, ctx, params, tok0[:, None].long(),
+                torch.full((batch,), prompt, dtype=torch.int32, device=dev),
+                caches)
             del caches
-            x, _ = M.forward(cfg, ctx, params,
-                             torch.cat([prompts, tok0[:, None].long()], 1))
-            logits_f = M.logits_of(cfg, params, x[:, SERVE_PROMPT])
+            n_dec = len(routes)
+            x, _, _ = M.forward(pcfg, ctx, params,
+                                torch.cat([prompts, tok0[:, None].long()], 1))
+            logits_f = M.logits_of(pcfg, params, x[:, prompt])
             del x
-        scale = float(logits_f.abs().max())
-        parity = float((logits_d - logits_f).abs().max()) / scale
+            held, flips, drop_diffs = route_agreement(
+                routes[:n_dec], routes[n_dec:], batch, prompt)
+            del routes
+        if not held:
+            raise AssertionError(f"{name}: every request's routes differ "
+                                 f"between decode and the full forward: "
+                                 f"{flips} {drop_diffs}")
+        rows = torch.tensor(held, device=dev)
+        scale = float(logits_f[rows].abs().max())
+        parity = float((logits_d[rows] - logits_f[rows]).abs().max()) / scale
         finite = bool(torch.isfinite(logits_p).all()
                       and torch.isfinite(logits_d).all()
                       and torch.isfinite(logits_f).all())
         in_vocab = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
-        same_first = bool(torch.equal(tok0.cpu(), tokens[:, 0]))
+        # the first token again, at the serve path's own capacity factor
+        same_first = bool(torch.equal(
+            (tok0 if nxt3 is None else nxt3).cpu(), tokens[:, 0]))
         n_decode = SERVE_GEN - 1
         lines[name] = {
             "params": n_params, "param_bytes": param_bytes,
             "head_f32_bytes": head_f32_bytes,
             "dtype": cfg.dtype, "layers": cfg.n_layers,
             "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+            "batch": batch, "prompt": prompt,
             "generated": SERVE_GEN, "capacity": shape.seq_len,
-            "reduced": SERVE_REDUCED, "init_s": init_s,
+            "reduced": serve_reduced(name), "init_s": init_s,
             "prefill_ms": prefill_s * 1e3,
-            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+            "prefill_tokens_per_s": batch * prompt / prefill_s,
             "decode_ms_per_step": decode_s * 1e3 / n_decode,
-            "decode_tokens_per_s": SERVE_BATCH * n_decode / decode_s,
+            "decode_tokens_per_s": batch * n_decode / decode_s,
             "peak_device_bytes": peak,
             "launches_prefill": {k: after_prefill[k] for k in KERNELS
                                  if after_prefill[k]},
             "launches_decode": {k: v for k, v in in_decode.items() if v},
+            "flash_attention_launches_prefill_by_window": {
+                str(w): n for w, n in flash_by_window.items()},
             "rglru_scan_launches_prefill_by_entry": rglru_by_entry,
             "calls_by_dtype": calls_by_dtype,
+            **({"moe": moe_line} if moe_line else {}),
             "profiled": {"what": "prefill + 4 decode steps",
                          "wall_s": prof_wall_s, "device_busy_s": busy_s,
                          "device_idle_share": 1.0 - busy_s / prof_wall_s,
@@ -2592,11 +2809,17 @@ def run_serve_phase(dev, seed):
                          "elementwise_device_s": sum(
                              v for k, v in device_s.items()
                              if ELEMENTWISE.search(k)),
+                         "flash_attention_device_s": flash_s,
                          "rglru_scan_device_s": rglru_s,
                          **({"ssd_scan_device_s": ssd_s,
                              "ssd_scan_share_of_busy": ssd_s["total"]
                              / busy_s} if ssd_s else {})},
             "parity_max_rel_err": parity, "parity_tolerance": PARITY_TOL,
+            "parity_rows_held": held,
+            **({"parity_capacity_factor": PARITY_CAPACITY_FACTOR,
+                "parity_route_flips": flips,
+                "parity_route_drop_differences": drop_diffs}
+               if cfg.moe is not None else {}),
             "logits_max_abs": scale, "finite": finite,
             "tokens_in_vocab": in_vocab,
             "first_token_repeats": same_first,
@@ -2607,6 +2830,10 @@ def run_serve_phase(dev, seed):
         got = {k: after_prefill[k] for k in KERNELS if after_prefill[k]}
         if got != want:
             raise AssertionError(f"{name}: prefill launched {got}, not {want}")
+        if flash_by_window != SERVE_FLASH_BY_WINDOW.get(name, {}):
+            raise AssertionError(f"{name}: flash_attention's prefill launches "
+                                 f"by window {flash_by_window}, not "
+                                 f"{SERVE_FLASH_BY_WINDOW.get(name)}")
         if any(in_decode.values()):
             raise AssertionError(f"{name}: decode launched {in_decode}")
         if sum(rglru_by_entry.values()) != after_prefill["rglru_scan"]:
@@ -3677,16 +3904,24 @@ def main() -> None:
     # (rglru_scan: the serve path's first bfloat16 call, then the float32
     # tail's first)
     bf16, f32 = torch.bfloat16, torch.float32
-    (q, k, v, q_pos, k_pos), kw = first[("flash_attention", bf16)]
-    path_llm = {"flash_attention": [check_flash(dev, q, k, v, q_pos, k_pos,
-                                                tol=FLASH_PATH_TOL, **kw)]}
-    (x, dt, A, B, C), kw = first[("ssd_scan", bf16)]
+    path_llm = {"flash_attention": []}
+    for model, window in FLASH_PATH_CALLS:
+        args, kw = first.pop((model, "flash_attention", bf16, window))
+        path_llm["flash_attention"].append({
+            "call": f"{model} prefill, window {window}",
+            **check_flash(dev, *(a.to(dev) for a in args),
+                          tol=FLASH_PATH_TOL, **kw)})
+        del args
+        torch.cuda.empty_cache()
+    (x, dt, A, B, C), kw = first[("mamba2-130m", "ssd_scan", bf16, None)]
     path_llm["ssd_scan"] = [check_ssd(dev, x, dt, A, B, C, **kw)]
     path_llm["rglru_scan"] = [
         check_rglru(dev, *(a.to(dev) for a in args), **kw)
-        for args, kw in (first[("rglru_scan", bf16)],
-                         first[("rglru_scan", f32)])]
-    del first, q, k, v, x, B, C
+        for args, kw in (first[("recurrentgemma-9b", "rglru_scan", bf16,
+                                None)],
+                         first[("recurrentgemma-9b", "rglru_scan", f32,
+                                None)])]
+    del first, x, B, C
     torch.cuda.empty_cache()
     stress = llm_stress_cases(dev)
     for name, path_cases in path_llm.items():
@@ -3834,6 +4069,22 @@ def main() -> None:
     # (the train path's forward)
     fa_row = next(r for r in table if r["name"] == "flash_attention")
     fa_row["ms_with_lse"] = cases["flash_attention"][0]["ms_with_lse"]
+    # its serve calls model by model (launches: each window's in the
+    # model's prefill), then the stress calls at Qwen3's and OLMoE's
+    # attention, which no path launches
+    fa_row["launches_by_model"] = {
+        m: serve_launches[m]["flash_attention"] for m in SERVE_MODELS
+        if serve_launches[m]["flash_attention"]}
+    fa_row["calls"] = [
+        {"call": case["call"], "launches": serve_lines[model][
+            "flash_attention_launches_prefill_by_window"][str(window)],
+         **{k: case[k] for k in keys}}
+        for (model, window), case in zip(FLASH_PATH_CALLS,
+                                         cases["flash_attention"])] + [
+        {"call": case["call"], "launches": 0,
+         **{k: case[k] for k in keys}}
+        for case in cases["flash_attention"] if "stress" in case.get(
+            "call", "")]
     # the bare recurrence's backward entry, off the path
     rgb_row = next(r for r in table if r["name"] == "rglru_scan_bwd")
     rgb_row["entries"] = [

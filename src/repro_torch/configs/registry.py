@@ -1,34 +1,44 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
-The port serves two of the JAX package's ten architectures so far, the two
-with recurrent mixers: ``recurrentgemma-9b`` (RG-LRU + local attention) and
-``mamba2-130m`` (Mamba-2 SSD).  Any other id raises ``KeyError``; the other
-eight (MoE, MLA, modality frontends, full and alternating attention) are
-ROADMAP Queue 1 item 6.  ``reduced_config`` is the JAX package's smoke
-variant of an architecture, rule for rule, so the two packages' CPU parity
-tests build the same model.
+The port serves eight of the JAX package's ten architectures: the two with
+recurrent mixers (``recurrentgemma-9b``, ``mamba2-130m``), the dense ones
+with full and alternating attention (``olmo-1b``, ``qwen3-8b``,
+``gemma2-2b``, ``gemma2-9b``) and the MoE ones, DeepSeek's with multi-head
+latent attention (``olmoe-1b-7b``, ``deepseek-v2-lite-16b``).  The two with
+modality frontends (``pixtral-12b``, ``musicgen-medium``) raise
+``KeyError``: they are ROADMAP Queue 1 item 6.4.  ``reduced_config`` is the
+JAX package's smoke variant of an architecture, rule for rule, so the two
+packages' CPU parity tests build the same model.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek
+from repro_torch.configs.gemma2_2b import CONFIG as _gemma2_2b
+from repro_torch.configs.gemma2_9b import CONFIG as _gemma2_9b
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
+from repro_torch.configs.olmo_1b import CONFIG as _olmo
+from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
+from repro_torch.configs.qwen3_8b import CONFIG as _qwen3
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma
 
-ARCHS = {c.name: c for c in [_recurrentgemma, _mamba2]}
+ARCHS = {c.name: c for c in [_olmoe, _olmo, _qwen3, _gemma2_9b, _gemma2_2b,
+                             _recurrentgemma, _deepseek, _mamba2]}
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"arch {name!r} is not ported yet (ROADMAP Queue 1 "
-                       f"item 6); the port has: {sorted(ARCHS)}")
+                       f"item 6.4); the port has: {sorted(ARCHS)}")
     return ARCHS[name]
 
 
 def reduced_config(name: str) -> ModelConfig:
-    """A tiny same-family variant for CPU tests (one pattern period,
-    d_model 128), the same as the JAX package's ``reduced_config``."""
+    """A tiny same-family variant for CPU tests (at most 2 layers or one
+    pattern period, d_model 128, 4 experts), the same as the JAX package's
+    ``reduced_config``."""
     cfg = get_config(name)
     kw = dict(
         name=cfg.name + "-smoke",
@@ -40,12 +50,29 @@ def reduced_config(name: str) -> ModelConfig:
     )
     if cfg.has_attention:
         kw.update(n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 4) or 4, d_head=32)
-    kw["n_layers"] = len(cfg.layer_pattern)          # one full pattern period
+    if cfg.layer_pattern == ("attn",):
+        kw["n_layers"] = 2
+    else:
+        kw["n_layers"] = len(cfg.layer_pattern)      # one full pattern period
     if cfg.d_ff:
         kw["d_ff"] = 256
-    if cfg.recurrent.kind == "rglru":
-        kw["recurrent"] = dataclasses.replace(cfg.recurrent, width=128)
-    else:
-        kw["recurrent"] = dataclasses.replace(
-            cfg.recurrent, width=128, head_dim=32, d_state=16, chunk_size=16)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=2, d_expert=64,
+            d_shared=64 if cfg.moe.n_shared_experts else 0,
+            d_ff_dense=128 if cfg.moe.first_dense_layers else 0,
+        )
+        if cfg.moe.first_dense_layers:
+            kw["n_layers"] = 2                       # 1 dense + 1 moe layer
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_head_dim=32,
+                              qk_rope_head_dim=16, v_head_dim=32)
+        kw["d_head"] = 48
+    if cfg.recurrent is not None:
+        if cfg.recurrent.kind == "rglru":
+            kw["recurrent"] = dataclasses.replace(cfg.recurrent, width=128)
+        else:
+            kw["recurrent"] = dataclasses.replace(
+                cfg.recurrent, width=128, head_dim=32, d_state=16,
+                chunk_size=16)
     return dataclasses.replace(cfg, **kw)

@@ -142,7 +142,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
     def prefill_step(params: Dict, batch: Dict):
         if "extra_emb" in batch:
             raise NotImplementedError("modality frontends are not ported yet "
-                                      "(ROADMAP Queue 1 item 6)")
+                                      "(ROADMAP Queue 1 item 6.4)")
         logits, caches = M.prefill(cfg, ctx, params, batch["ids"],
                                    capacity=shape.seq_len, long_ctx=long_ctx)
         return M.sample_greedy(ctx, logits), caches

@@ -15,11 +15,19 @@ card.  Prefill and decode compute the same masked attention two ways:
   kernel's plain version, dense masked float32 attention, which decode
   calls directly.
 
-MLA, the seq-TP layout and its distributed decode come with the other
-architectures and the mesh (ROADMAP Queue 1 items 6-7).
+DeepSeek's multi-head latent attention (MLA, ``attention.py:141-153,
+411-510``) takes the same two ways: its prefill expands the latent into 16
+heads of q / k 192 wide (128 + 64 rotary) and v 128 wide and goes through
+the flash hook (G = 1, dv != dh); its decode is the reference's absorbed
+form, float32 einsums against the latent ring (``latent``, ``k_rope``,
+``pos``), with no kernel, as in the reference.
+
+The seq-TP layout and its distributed decode come with the mesh (ROADMAP
+Queue 1 item 7).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -28,8 +36,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models.common import (ParamDef, ShardCtx, TensorSpec,
-                                       apply_rope, kv_eff_heads, matmul)
+                                       apply_rope, einsum, kv_eff_heads,
+                                       matmul, rmsnorm, softcap)
 
+NEG_INF = -1e30
 POS_SENTINEL = 2**30    # k-slot "empty" marker (always masked out)
 
 
@@ -52,8 +62,7 @@ def attention_core_dispatch(*args, **kw):
 def attn_defs(cfg: ModelConfig, tp: int) -> Dict[str, ParamDef]:
     d, hq, dh = cfg.d_model, cfg.n_heads, cfg.d_head
     if cfg.mla is not None:
-        raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 "
-                                  "item 6)")
+        return mla_defs(cfg, tp)
     head_tp = cfg.tp_strategy == "head"
     sh1 = (None, "model") if head_tp else (None, None)
     sh0 = ("model", None) if head_tp else (None, None)
@@ -75,14 +84,36 @@ def attn_defs(cfg: ModelConfig, tp: int) -> Dict[str, ParamDef]:
     return defs
 
 
+def mla_defs(cfg: ModelConfig, tp: int) -> Dict[str, ParamDef]:
+    m = cfg.mla
+    d, hq = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    sh1 = (None, "model")
+    return {
+        "wq": ParamDef((d, hq * qd), sh1),
+        "w_dkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                          (None, None)),
+        "kv_norm": ParamDef((m.kv_lora_rank,), (None,), init="ones"),
+        "w_uk": ParamDef((m.kv_lora_rank, hq * m.qk_nope_head_dim), sh1),
+        "w_uv": ParamDef((m.kv_lora_rank, hq * m.v_head_dim), sh1),
+        "wo": ParamDef((hq * m.v_head_dim, d), ("model", None)),
+    }
+
+
 def cache_defs(cfg: ModelConfig, tp: int, batch_local: int,
                capacity: int) -> Dict[str, TensorSpec]:
     """Per-attention-layer KV cache.  ``capacity`` is the ring size
-    (min(seq_len, window) for a windowed layer)."""
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 "
-                                  "item 6)")
+    (min(seq_len, window) for a windowed layer).  MLA's holds the latent
+    and the rotary key, post-rope."""
     dt = getattr(torch, cfg.dtype)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "latent": TensorSpec((batch_local, capacity, m.kv_lora_rank), dt),
+            "k_rope": TensorSpec((batch_local, capacity, m.qk_rope_head_dim),
+                                 dt),
+            "pos": TensorSpec((batch_local, capacity), torch.int32),
+        }
     kv, dh = cfg.n_kv_heads, cfg.d_head
     return {
         "k": TensorSpec((batch_local, capacity, kv, dh), dt),
@@ -119,8 +150,7 @@ def attn_fwd(cfg: ModelConfig, ctx: ShardCtx, p: Dict, x: torch.Tensor, *,
          updated in place.
     Returns (y (b, s, d), cache)."""
     if cfg.mla is not None:
-        raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 "
-                                  "item 6)")
+        return mla_fwd(cfg, ctx, p, x, window=window, cache=cache, pos=pos)
     if pos is None:
         return _gqa_full(cfg, ctx, p, x, window=window, cache=cache)
     return _gqa_decode(cfg, ctx, p, x, window=window, cache=cache, pos=pos)
@@ -148,23 +178,22 @@ def _gqa_full(cfg, ctx, p, x, *, window, cache):
                                 window=window, cap=cfg.attn_softcap)
     y = matmul(o.reshape(b, s, hq * dh), p["wo"])
     if cache is not None:
-        _fill_cache_from_full(cache, k, v, positions)
+        _fill_ring(cache, {"k": k, "v": v}, positions)
     return y, cache
 
 
-def _fill_cache_from_full(cache, k, v, k_pos):
-    """Prefill: write the last ``capacity`` keys into the ring cache, in
-    place; every other slot is emptied."""
+def _fill_ring(cache, new, k_pos):
+    """Prefill: write the last ``capacity`` positions of each ``new[name]``
+    (b, s, ...) into the ring ``cache[name]``, in place, and their positions
+    into ``cache["pos"]``; every other slot is emptied."""
     capacity = cache["pos"].shape[1]
-    s = k.shape[1]
+    b, s = next(iter(new.values())).shape[:2]
     take = min(s, capacity)
     slots = (k_pos[s - take:] % capacity).long()             # (take,)
-    b = k.shape[0]
-    cache["k"].zero_()
-    cache["v"].zero_()
+    for name, t in new.items():
+        cache[name].zero_()
+        cache[name][:, slots] = t[:, s - take:].to(cache[name].dtype)
     cache["pos"].fill_(POS_SENTINEL)
-    cache["k"][:, slots] = k[:, s - take:].to(cache["k"].dtype)
-    cache["v"][:, slots] = v[:, s - take:].to(cache["v"].dtype)
     cache["pos"][:, slots] = k_pos[s - take:][None].expand(b, take)
 
 
@@ -202,3 +231,84 @@ def _gqa_decode(cfg, ctx, p, x, *, window, cache, pos):
                          window=window, cap=cfg.attn_softcap)
     y = matmul(o.reshape(b, 1, hq * dh), p["wo"])
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA forward (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_fwd(cfg: ModelConfig, ctx: ShardCtx, p: Dict, x: torch.Tensor, *,
+            window: Optional[int], cache: Optional[Dict] = None,
+            pos: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Multi-head latent attention, :func:`attn_fwd`'s two modes."""
+    if pos is not None:
+        return _mla_decode(cfg, ctx, p, x, window=window, cache=cache,
+                           pos=pos)
+    m = cfg.mla
+    b, s, d = x.shape
+    hq = cfg.n_heads
+    nope, rope_d, vd, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                           m.v_head_dim, m.kv_lora_rank)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    q = _split_heads(matmul(x, p["wq"]), hq, nope + rope_d)
+    qn, qr = q[..., :nope], q[..., nope:]
+    qr = apply_rope(qr, positions, cfg.rope_theta)
+    dkv = matmul(x, p["w_dkv"])                              # (b, s, r+rope)
+    latent = rmsnorm(dkv[..., :r], p["kv_norm"])
+    k_rope = apply_rope(dkv[..., None, r:], positions,
+                        cfg.rope_theta)                      # (b, s, 1, rope)
+    kn = _split_heads(matmul(latent, p["w_uk"]), hq, nope)
+    vv = _split_heads(matmul(latent, p["w_uv"]), hq, vd)
+    k = torch.cat([kn, k_rope.expand(b, s, hq, rope_d)], -1)
+    # GQA form: kv heads = hq, G = 1, v narrower than q / k
+    qg = torch.cat([qn, qr], -1).reshape(b, s, hq, 1, nope + rope_d)
+    # the reference calls the plain core here (attention.py:435); the port
+    # goes through the flash hook, as for GQA
+    o = attention_core_dispatch(qg, k, vv, positions, positions,
+                                window=window, cap=cfg.attn_softcap)
+    y = matmul(o.reshape(b, s, hq * vd), p["wo"])
+    if cache is not None:
+        _fill_ring(cache, {"latent": latent, "k_rope": k_rope[:, :, 0]},
+                   positions)
+    return y, cache
+
+
+def _mla_decode(cfg, ctx, p, x, *, window, cache, pos):
+    """Absorbed low-rank MLA decode: scores and values stay in latent
+    space.  x: (b, 1, d); pos: (b,)."""
+    m = cfg.mla
+    b = x.shape[0]
+    hq = cfg.n_heads
+    nope, rope_d, vd, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                           m.v_head_dim, m.kv_lora_rank)
+    q = _split_heads(matmul(x, p["wq"]), hq, nope + rope_d)  # (b, 1, h, qd)
+    qn, qr = q[..., :nope], q[..., nope:]
+    qr = apply_rope(qr, pos[:, None], cfg.rope_theta)
+    dkv = matmul(x, p["w_dkv"])
+    latent_new = rmsnorm(dkv[..., :r], p["kv_norm"])         # (b, 1, r)
+    krope_new = apply_rope(dkv[..., None, r:], pos[:, None],
+                           cfg.rope_theta)[:, :, 0]          # (b, 1, rope)
+
+    slot = pos % cache["pos"].shape[1]
+    lat_c = _ring_insert(cache["latent"], latent_new, slot)
+    rope_c = _ring_insert(cache["k_rope"], krope_new, slot)
+    pos_c = _ring_insert(cache["pos"], pos[:, None], slot)
+
+    # absorb W_uk into q: (b, h, nope) x (r, h, nope) -> (b, h, r)
+    w_uk = p["w_uk"].reshape(r, hq, nope)
+    qlat = einsum("bhn,rhn->bhr", qn[:, 0].float(), w_uk.float())
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    s_lat = einsum("bhr,bcr->bhc", qlat, lat_c.float())
+    s_rope = einsum("bhd,bcd->bhc", qr[:, 0].float(), rope_c.float())
+    s = softcap((s_lat + s_rope) * scale, cfg.attn_softcap)
+    mask = pos_c[:, None, :] <= pos[:, None, None]
+    if window is not None:
+        mask &= pos_c[:, None, :] > (pos[:, None, None] - window)
+    w = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    o_lat = einsum("bhc,bcr->bhr", w, lat_c.float())         # (b, h, r)
+    w_uv = p["w_uv"].reshape(r, hq, vd)
+    o = einsum("bhr,rhv->bhv", o_lat, w_uv.float())
+    o = o.reshape(b, 1, hq * vd).to(x.dtype)
+    return matmul(o, p["wo"]), cache

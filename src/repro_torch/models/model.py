@@ -137,9 +137,10 @@ def block_defs(cfg: ModelConfig, tp: int, meta: LayerMeta) -> Dict:
 def block_fwd(cfg: ModelConfig, mixer_ctx: ShardCtx,
               meta: LayerMeta, p: Dict, x: torch.Tensor, *,
               cache: Optional[Dict], pos: Optional[torch.Tensor],
-              ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x, cache); the reference's MoE auxiliary loss is always 0
-    without MoE, so it is not carried."""
+              ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (x, cache, aux): ``aux`` the MoE router's load-balance loss
+    (0-d float32), None in a layer without MoE (the reference's 0, which
+    :func:`forward` adds nothing for)."""
     h = apply_norm(cfg.norm_kind, x, p["ln1"])
     if meta.kind == "attn":
         mix, new_cache = attn.attn_fwd(cfg, mixer_ctx, p["mix"], h,
@@ -154,16 +155,17 @@ def block_fwd(cfg: ModelConfig, mixer_ctx: ShardCtx,
     if cfg.post_norm:
         mix = apply_norm(cfg.norm_kind, mix, p["post_ln1"])
     x = x + mix
+    aux = None
     if meta.d_ff or meta.use_moe:
         h = apply_norm(cfg.norm_kind, x, p["ln2"])
         if meta.use_moe:
-            y = ffn.moe_fwd(cfg, mixer_ctx, p["ffn"], h)
+            y, aux = ffn.moe_fwd(cfg, mixer_ctx, p["ffn"], h)
         else:
             y = ffn.mlp_fwd(cfg, mixer_ctx, p["ffn"], h)
         if cfg.post_norm:
             y = apply_norm(cfg.norm_kind, y, p["post_ln2"])
         x = x + y
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def block_cache_defs(cfg: ModelConfig, tp: int, meta: LayerMeta,
@@ -192,7 +194,7 @@ def stack_defs(defs: PyTree, n: int) -> PyTree:
 def model_defs(cfg: ModelConfig, tp: int, long_ctx: bool = False) -> Dict:
     if cfg.frontend is not None:
         raise NotImplementedError("modality frontends are not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
+                                  "(ROADMAP Queue 1 item 6.4)")
     metas = layer_metas(cfg, long_ctx)
     prefix, unit, n_units, tail = group_layers(cfg, metas)
     d = cfg.d_model
@@ -344,23 +346,25 @@ def forward(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
             *, caches: Optional[Dict] = None,
             pos: Optional[torch.Tensor] = None,
             long_ctx: bool = False, remat: bool = False,
-            ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (hidden (b, s, d), caches); ``caches``, where given, is
-    updated in place.  ``params`` is the tree as loaded
+            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (hidden (b, s, d), caches, aux): ``caches``, where given, is
+    updated in place; ``aux`` is the sum of the MoE layers' router
+    load-balance losses (0-d float32, 0 without MoE).  ``params`` is the tree as loaded
     (:func:`load_params`), or cast for compute inside :func:`lm_loss`.
     ``remat`` recomputes each unit's body in the backward (training only:
     not with caches)."""
     metas = layer_metas(cfg, long_ctx)
     prefix, unit, n_units, tail = group_layers(cfg, metas)
     x = embed_tokens(cfg, ctx, params, ids)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run_block(meta, p, x, cache):
-        x, _ = block_fwd(cfg, ctx, meta, p, x, cache=cache, pos=pos)
-        return x
+    def run_block(meta, p, x, aux, cache):
+        x, _, a = block_fwd(cfg, ctx, meta, p, x, cache=cache, pos=pos)
+        return x, (aux if a is None else aux + a)
 
     for i, meta in enumerate(prefix):
         c = caches["prefix"][i] if caches is not None else None
-        x = run_block(meta, params["prefix"][i], x, c)
+        x, aux = run_block(meta, params["prefix"][i], x, aux, c)
 
     # the reference's lax.scan over units: a Python loop over the stacked
     # leaves, each taken apart once (a cache leaf's unit is a view, so it is
@@ -368,26 +372,26 @@ def forward(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
     units = [tree_map(lambda a: a.unbind(0), params["scan"][j])
              for j in range(len(unit))] if n_units else []
 
-    def unit_body(x, u):
+    def unit_body(x, aux, u):
         for j, meta in enumerate(unit):
             p_u = tree_map(lambda parts: parts[u], units[j])
             c_u = (tree_map(lambda a: a[u], caches["scan"][j])
                    if caches is not None else None)
-            x = run_block(meta, p_u, x, c_u)
-        return x
+            x, aux = run_block(meta, p_u, x, aux, c_u)
+        return x, aux
 
     for u in range(n_units):
         if remat and caches is None:
-            x = checkpoint(unit_body, x, u, use_reentrant=False)
+            x, aux = checkpoint(unit_body, x, aux, u, use_reentrant=False)
         else:
-            x = unit_body(x, u)
+            x, aux = unit_body(x, aux, u)
 
     for i, meta in enumerate(tail):
         c = caches["tail"][i] if caches is not None else None
-        x = run_block(meta, params["tail"][i], x, c)
+        x, aux = run_block(meta, params["tail"][i], x, aux, c)
 
     x = apply_norm(cfg.norm_kind, x, params["final_norm"])
-    return x, caches
+    return x, caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -432,11 +436,13 @@ def lm_loss(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
     is cut into ``s // chunk`` chunks of equal length (the tokens past the
     last whole one count nothing, as in the reference), each chunk's float32
     logits made and dropped in turn; ``remat`` also recomputes each chunk's
-    logits in the backward.  Returns (loss, {"xent", "aux", "tokens"})."""
+    logits in the backward.  With MoE the loss adds ``router_aux_coef``
+    times the router's load-balance loss, as the reference's does.  Returns
+    (loss, {"xent", "aux", "tokens"})."""
     dtype = getattr(torch, cfg.dtype)
     cast = {k: v for k, v in params.items() if k != "head_f32"}
     cast = tree_map(lambda t: compute_cast(t, dtype), cast)
-    x, _ = forward(cfg, ctx, cast, ids, remat=remat)
+    x, _, aux = forward(cfg, ctx, cast, ids, remat=remat)
     w = head_matrix(cfg, params).to(x.dtype)
     b, s, d = x.shape
     n_chunks = max(1, s // chunk)
@@ -470,8 +476,10 @@ def lm_loss(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
             l_c, n_c = chunk_loss(xs[c], ls[c])
         tot, n = tot + l_c, n + n_c
     loss = tot / torch.clamp(n, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return loss, {"xent": loss, "aux": aux, "tokens": n}
+    metrics = {"xent": loss, "aux": aux, "tokens": n}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_coef * aux
+    return loss, metrics
 
 
 def prefill(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
@@ -482,8 +490,8 @@ def prefill(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
     b, s = ids.shape
     caches = empty_cache_tree(
         model_cache_defs(cfg, 1, b, capacity, long_ctx), ids.device)
-    x, caches = forward(cfg, ctx, params, ids, caches=caches,
-                        long_ctx=long_ctx)
+    x, caches, _ = forward(cfg, ctx, params, ids, caches=caches,
+                           long_ctx=long_ctx)
     return logits_of(cfg, params, x[:, -1]), caches
 
 
@@ -493,8 +501,8 @@ def decode_step(cfg: ModelConfig, ctx: ShardCtx, params: Dict,
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  ids: (b, 1); pos: (b,).  Returns (logits (b, V),
     caches), the caches updated in place."""
-    x, caches = forward(cfg, ctx, params, ids, caches=caches, pos=pos,
-                        long_ctx=long_ctx)
+    x, caches, _ = forward(cfg, ctx, params, ids, caches=caches, pos=pos,
+                           long_ctx=long_ctx)
     return logits_of(cfg, params, x[:, 0]), caches
 
 

@@ -1,9 +1,10 @@
 """The port's serving path against the JAX package's, on the CPU.
 
-For the two ported architectures at their reduced (smoke) sizes, and for
+For the eight ported architectures at their reduced (smoke) sizes, for
 RecurrentGemma with a tail block (5 layers: one rec/rec/attn unit plus two
-rec layers whose 1-D leaves stay float32 and promote the residual), the
-JAX package's parameters are drawn with ``jax.random.key(0)``, carried
+rec layers whose 1-D leaves stay float32 and promote the residual), and
+for OLMoE with one shared expert and a dense first layer (3 layers: the
+dense prefix block and two MoE units), the JAX package's parameters are drawn with ``jax.random.key(0)``, carried
 across as numpy (``convert.model_params_from_reference``), and both
 packages run the same seeded token ids: ``forward`` hidden states,
 ``prefill`` logits and caches, three ``decode_step``s and the greedy tokens,
@@ -44,18 +45,31 @@ from repro_torch.configs import InputShape
 
 S = 16          # prompt length
 N_DECODE = 3
-ARCHS = ["recurrentgemma-9b", "recurrentgemma-9b-tail", "mamba2-130m"]
+ARCHS = ["recurrentgemma-9b", "recurrentgemma-9b-tail", "mamba2-130m",
+         "olmo-1b", "qwen3-8b", "gemma2-2b", "gemma2-9b", "olmoe-1b-7b",
+         "olmoe-1b-7b-shared", "deepseek-v2-lite-16b"]
 DTYPES = ["float32", "bfloat16"]
+
+
+def _variant(cfg, arch):
+    """The test's variants of a reduced config, the same replace in both
+    packages: RecurrentGemma with its tail, OLMoE with a shared expert and
+    a dense first layer."""
+    if arch.endswith("-tail"):
+        return {"n_layers": 5}
+    if arch.endswith("-shared"):
+        return {"n_layers": 3, "moe": dataclasses.replace(
+            cfg.moe, n_shared_experts=1, d_shared=64, first_dense_layers=1,
+            d_ff_dense=128)}
+    return {}
 
 
 def _cfgs(arch, dtype):
     """(reference config, port config): the same values in both packages."""
-    base = arch.replace("-tail", "")
+    base = arch.replace("-tail", "").replace("-shared", "")
     ref, port = ref_reduced_config(base), reduced_config(base)
-    kw = {"dtype": dtype}
-    if arch.endswith("-tail"):
-        kw["n_layers"] = 5
-    return dataclasses.replace(ref, **kw), dataclasses.replace(port, **kw)
+    return (dataclasses.replace(ref, dtype=dtype, **_variant(ref, arch)),
+            dataclasses.replace(port, dtype=dtype, **_variant(port, arch)))
 
 
 def _np(a):
@@ -128,7 +142,7 @@ def _run(arch, dtype, device="cpu"):
     x_ref, _, _ = RM.forward(rcfg, rctx, ref_params, jnp.asarray(ids),
                              remat=False)
     with torch.inference_mode():
-        x, _ = M.forward(cfg, ctx, params, dev(ids))
+        x, _, _ = M.forward(cfg, ctx, params, dev(ids))
     out["hidden"] = (x_ref, x)
 
     lg_ref, c_ref = RM.prefill(rcfg, rctx, ref_params,
@@ -231,9 +245,9 @@ def test_head_meets_each_hidden_state_in_its_dtype(arch, dtype):
         1, cfg.vocab_size, (2, S + 1)))
     ctx = ShardCtx()
     with torch.inference_mode():
-        x_full, _ = M.forward(cfg, ctx, params, ids[:, :S])
+        x_full, _, _ = M.forward(cfg, ctx, params, ids[:, :S])
         _, caches = M.prefill(cfg, ctx, params, ids[:, :S], capacity=S + 8)
-        x_dec, _ = M.forward(cfg, ctx, params, ids[:, S:], caches=caches,
+        x_dec, _, _ = M.forward(cfg, ctx, params, ids[:, S:], caches=caches,
                              pos=torch.full((2,), S, dtype=torch.int32))
     assert x_full.dtype == M.head_dtype(cfg)
     assert x_dec.dtype == getattr(torch, dtype)
@@ -279,13 +293,24 @@ def test_serving_on_the_card_matches_reference(arch, dtype, cuda):
             np.testing.assert_array_equal(got.cpu().numpy(), np.asarray(ref))
 
 
+FULL_WIDTH_PARAMS = {"recurrentgemma-9b": 8_578_519_040,
+                     "mamba2-130m": 128_983_488,
+                     "olmo-1b": 1_176_764_416,
+                     "qwen3-8b": 8_190_735_360,
+                     "gemma2-2b": 2_614_341_888,
+                     "gemma2-9b": 9_241_705_984,
+                     "olmoe-1b-7b": 6_919_100_416,
+                     "deepseek-v2-lite-16b": 15_706_484_224}
+
+
 def test_full_width_defs_match_reference_and_published_sizes():
     """The port's full-width parameter trees have the reference's layout,
-    shapes and counts: 8,578,519,040 and 128,983,488 parameters."""
+    shapes and counts (``FULL_WIDTH_PARAMS``), and its configs the
+    reference's values; the frontends' architectures are refused."""
     from repro.configs import get_config as ref_get_config
     from repro.models.common import ParamDef as RefDef
     counts = {}
-    for name in ("recurrentgemma-9b", "mamba2-130m"):
+    for name in FULL_WIDTH_PARAMS:
         ref = {p: (tuple(d.shape), d.init, d.scale)
                for p, d in _flat_ref_defs(RM.model_defs(ref_get_config(name),
                                                         1), RefDef).items()}
@@ -294,15 +319,16 @@ def test_full_width_defs_match_reference_and_published_sizes():
         assert got == ref
         counts[name] = sum(int(np.prod(shape)) for shape, _, _ in
                            got.values())
-    assert counts == {"recurrentgemma-9b": 8_578_519_040,
-                      "mamba2-130m": 128_983_488}
-    for name in ("recurrentgemma-9b", "mamba2-130m"):   # the copies agree
+    assert counts == FULL_WIDTH_PARAMS
+    for name in FULL_WIDTH_PARAMS:                      # the copies agree
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             ref_get_config(name))
         assert dataclasses.asdict(reduced_config(name)) == dataclasses.asdict(
             ref_reduced_config(name))
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("olmo-1b")
+    for name in ("pixtral-12b", "musicgen-medium"):
+        ref_get_config(name)
+        with pytest.raises(KeyError, match="not ported"):
+            get_config(name)
 
 
 def test_init_params_draws_the_reference_distribution():
@@ -333,8 +359,8 @@ def test_lm_module_holds_the_tree():
     assert "scan__0__mix__w_in" in names and "embed" in names
     ids = torch.arange(1, 9, dtype=torch.int64)[None]
     with torch.inference_mode():
-        x, _ = lm(ids)
-        want, _ = M.forward(cfg, ShardCtx(), tree, ids)
+        x, _, _ = lm(ids)
+        want, _, _ = M.forward(cfg, ShardCtx(), tree, ids)
     torch.testing.assert_close(x, want, rtol=0, atol=0)
 
 
@@ -344,23 +370,33 @@ def test_lm_module_holds_the_tree():
 
 
 def _port_model(arch, **kw):
-    """The port's config and the JAX package's drawn weights, loaded."""
+    """The port's config and the JAX package's drawn weights, loaded; MoE's
+    capacity bumped so that no pair is dropped in either mode, as
+    ``test_decode_parity.py`` bumps it."""
     rcfg = dataclasses.replace(ref_reduced_config(arch), **kw)
     cfg = dataclasses.replace(reduced_config(arch), **kw)
+    if cfg.moe is not None:
+        rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(
+            rcfg.moe, capacity_factor=8.0))
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
     tree = jax.tree.map(np.asarray, ref_instantiate(
         RM.model_defs(rcfg, 1), jax.random.key(0)))
     return cfg, M.load_params(cfg, convert.model_params_from_reference(
         tree, "cpu"))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m",
+                                  "olmo-1b", "qwen3-8b", "gemma2-2b",
+                                  "gemma2-9b", "olmoe-1b-7b",
+                                  "deepseek-v2-lite-16b"])
 def test_decode_matches_full_forward(arch):
     cfg, params = _port_model(arch, dtype="float32")
     ctx = ShardCtx()
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, S + 3)))
     with torch.inference_mode():
-        x, _ = M.forward(cfg, ctx, params, ids)
+        x, _, _ = M.forward(cfg, ctx, params, ids)
         _, caches = M.prefill(cfg, ctx, params, ids[:, :S], capacity=S + 8)
         for j in range(3):   # three consecutive decode steps
             pos = torch.full((2,), S + j, dtype=torch.int32)
@@ -381,7 +417,7 @@ def test_sliding_window_ring_cache():
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, total + 1)))
     with torch.inference_mode():
-        x, _ = M.forward(cfg, ctx, params, ids, long_ctx=True)
+        x, _, _ = M.forward(cfg, ctx, params, ids, long_ctx=True)
         _, caches = M.prefill(cfg, ctx, params, ids[:, :s], capacity=s,
                               long_ctx=True)
         for j in range(total - s):
@@ -392,6 +428,31 @@ def test_sliding_window_ring_cache():
     gt = M.logits_of(cfg, params, x[:, total - 1])
     err = float((logits_d - gt).abs().max())
     assert err < 2e-3, err
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-8b"])
+def test_sliding_window_ring_cache_attention_only(arch):
+    """``test_decode_parity.py``'s ring test for the dense architectures:
+    Gemma2's alternating layers and Qwen3's full ones under the long-context
+    window, decoded far past it."""
+    cfg, params = _port_model(arch, dtype="float32", window=8,
+                              long_context_window=8)
+    ctx = ShardCtx()
+    total, s = 24, 8
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, total + 1)))
+    with torch.inference_mode():
+        x, _, _ = M.forward(cfg, ctx, params, ids, long_ctx=True)
+        _, caches = M.prefill(cfg, ctx, params, ids[:, :s], capacity=s,
+                              long_ctx=True)
+        for j in range(total - s):
+            pos = torch.full((1,), s + j, dtype=torch.int32)
+            logits_d, caches = M.decode_step(cfg, ctx, params,
+                                             ids[:, s + j:s + j + 1], pos,
+                                             caches, long_ctx=True)
+    gt = M.logits_of(cfg, params, x[:, total - 1])
+    err = float((logits_d - gt).abs().max())
+    assert err < 2e-3, (arch, err)
 
 
 def test_mesh_and_other_archs_are_refused():
