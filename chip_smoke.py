@@ -104,7 +104,7 @@ Phases, each printed as one JSON line:
   elastic  elastic shard membership at full width.  Main run: the wire
            phase's run (shm, zero-copy, 4 forked clients, ssp(1), the
            50,000 x 1,000 f64 masters on the card) with n_shards=2,
-           max_shards=3, 4 clocks and the plan [(1, "add", 2), (2,
+           max_shards=3, 3 clocks and the plan [(1, "add", 2), (2,
            "remove", 0)], one shm-served replica behind a ReadGateway built
            after start() and the replicas phase's reader cycling the SLOs.
            The workers' last clock waits (60 s at most) until both ops
@@ -129,7 +129,7 @@ Phases, each printed as one JSON line:
            slot's blocks f64 on the card in the new partition's shape and
            slot 0's (0, C); the shards launched ps_apply after the first
            install; its kernel's events in the profile equal to its
-           launches in the window.  Then the autoscaler run: shm, 3
+           launches in the window.  Then the autoscaler run: shm, 2
            clocks, 1 of 2 slots active, AutoscalePolicy(split_imbalance=1.0,
            split_min_rows_s=0.0, min_shards=2) polling from start(); the
            last clock waits for its op.  Prints every action.  Checks: an
@@ -154,7 +154,7 @@ Phases, each printed as one JSON line:
   apps     MF on the runtime on the card at the widths of the Netflix Prize
            data set (480,189 users x 17,770 items, rank 100, 1,000,000
            ratings drawn from a seeded rank-100 ground truth), ssp(2), 4
-           workers, 3 clocks; then logistic regression (400 x 20, the JAX
+           workers, 2 clocks; then logistic regression (400 x 20, the JAX
            package's convergence-benchmark size) as a correctness and
            launch check only.  Launch counters set to 0 just before each
            and read just after; ps_apply's device seconds as in lda.
@@ -168,7 +168,7 @@ Phases, each printed as one JSON line:
            depths in bfloat16, random weights drawn on the card from
            --seed (default 0); 16,384 prompt tokens a model (drawn from
            the seed; 4 requests of 4,096, Gemma2-9B 2 of 8,192 so that its
-           4,096-token window masks on the local layers), 32 generated
+           4,096-token window masks on the local layers), 16 generated
            tokens each.  Per model: its
            parameters (the tree without head_f32, the float32 master copy
            of the head, whose bytes are reported apart; param_bytes is the
@@ -200,14 +200,17 @@ Phases, each printed as one JSON line:
            layer's routes compared between the two paths: a request whose
            chosen or kept experts differ in some layer (a near-tied route
            flipped by bfloat16 rounding, printed with its probability gap)
-           is left out of the check, and the check fails if none is left.
+           is decoded again from the same caches with the full forward's
+           routes forced at every MoE layer, and every request whose routes
+           then agree is held (all of them, unless the full forward
+           dropped a pair); the check fails if none is held.
   train    Mamba2-130M trained at full width and depth (24 layers, d 768,
            vocab 50,280; weights drawn on the card from --seed, float32
            masters, bfloat16 compute): 2 replicas stacked on the card, each
            on 4 SyntheticLM sequences of train_4k's 4,096 tokens a step
-           (train_4k's global batch of 256 cut to 8), 8 steps of
+           (train_4k's global batch of 256 cut to 8), 6 steps of
            make_train_step with Adam and cvap(2, 1.8e-3), remat on; the
-           launch counters set to 0 just before the 8 steps and read just
+           launch counters set to 0 just before the 6 steps and read just
            after, and ssd_chunked / ssd_scan_bwd of the plain version
            wrapped here to count calls.  Prints each step's wall, the
            median after the first, tokens a second, the host's wait on the
@@ -233,9 +236,9 @@ Phases, each printed as one JSON line:
            promote the residual stream to float32), weights drawn on the
            card from --seed, float32 masters, bfloat16 compute; one replica
            (the reference's mesh=None step: apply_and_sync over no axis) on
-           2 SyntheticLM sequences of 4,096 tokens a step, 6 Adam steps
+           2 SyntheticLM sequences of 4,096 tokens a step, 4 Adam steps
            under cvap(2, 1.8e-3), remat on.  The launch counters set to 0
-           just before the 6 steps and read after each; the plain versions
+           just before the 4 steps and read after each; the plain versions
            of rglru_scan, flash_attention and their backwards wrapped here
            to count calls.  Prints each step's wall, tokens a second, peak
            device memory, the losses, which steps synced on which trigger,
@@ -251,7 +254,35 @@ Phases, each printed as one JSON line:
            rglru_bwd_bf16 2, rglru_bwd_f32 2, flash_attention 2 and its
            backward 1, vap_accum one a leaf; no call of a plain version;
            the card's step within the train phase's tolerances of the
-           CPU's.
+           CPU's.  The launch counts a step come from M.group_layers (a
+           stacked unit's forward twice under remat, a layer outside the
+           units once, each backward once, the flash backward's also by
+           window); peak device memory must stay under the card's 80 GB.
+  train_gemma2
+           Gemma2-9B trained as train_rg is (one function runs the three
+           cells): full width (d 3,584, GQA 16 / 8 heads x 256, d_ff
+           14,336, vocab 256,000, softcaps 50 and 30), 4 of its 42 layers
+           (two local / global units, window 4,096), 2 sequences of 8,192
+           SyntheticLM tokens a step (so that the window masks), 4 Adam
+           steps under cvap(2, 1.8e-3), remat on.  Checks as train_rg's: a
+           step's flash_attention 8 and its backward 4 (2 windowed, 2
+           global); two reduced float32 Gemma2 steps on the card against
+           the CPU.
+  train_deepseek
+           DeepSeek-V2-Lite-16B the same way: full width (d 2,048, MLA
+           q / k 192, v 128, kv rank 512; 64 routed experts of 1,408, top
+           6, 2 shared, vocab 102,400), 3 of its 27 layers (the dense
+           first layer, then two MoE layers), 2 x 4,096 tokens a step at
+           capacity factor 1.25 (C 960).  Every MoE layer's routing is
+           noted as the step's dispatch returns it: the pairs dropped per
+           layer on the timed steps, and the pairs whose expert or slot
+           differ between a unit's forward and remat's recomputation in
+           the backward, which must be 0.  Checks as train_rg's: a step's
+           flash_attention 5 (the dense first layer's once) and its
+           backward 3; two reduced float32 DeepSeek steps on the card
+           against the CPU.  The MoE's gradient is not bit-repeatable run
+           to run (its gathers' backward adds atomically); the line says
+           so.
   kernels  each CUDA kernel against its plain PyTorch version, at the
            shapes the paths gave it (ps_apply's median call per table, no
            sentinel rows, as the shard sends none; MF's too; replica
@@ -288,7 +319,7 @@ Phases, each printed as one JSON line:
            float32 as the TPU kernel does, against the plain version in
            float32 on the same values to the output's rounding (the distance
            to the plain version in bfloat16 is printed).  Per case: its time
-           (CUDA events, median of 20 runs after warm-up), the plain
+           (CUDA events, median of 10 runs after warm-up), the plain
            version's (on the host for the parameter-server kernels, on the
            card for the LLM kernels), one PyTorch library call's on the card
            where one computes the same function (for vap_accum three eager
@@ -312,9 +343,9 @@ Phases, each printed as one JSON line:
            profiler, every launch of every call seen), call_ms (the flush's
            call: H2D, wrapper, D2H), library_device_ms (torch.argsort's
            device time) and launches_per_call; its bound counts bytes only
-           (8n read, 8n written).  Each topk_mag case runs in a child
-           process of this script (--topk-case N SEED), in a fresh CUDA
-           context: late in a process that has profiled the paths,
+           (8n read, 8n written).  The topk_mag cases run in one child
+           process of this script (--topk-cases N SEED ...), in a fresh
+           CUDA context: late in a process that has profiled the paths,
            torch.profiler loses a window's first device events and skews
            the durations of the rest.  The ssd_scan backward at the train
            path's first call (column slices of xBC) and at stress shapes
@@ -343,15 +374,21 @@ Phases, each printed as one JSON line:
            dtypes): each against its plain version on the card (rglru:
            dΛ to 1e-4 max|plain| + 1e-3 |plain|, + 2^-6 |plain| for a
            bfloat16 output; flash: the same in float32, 1e-2 max|plain| + 2^-6
-           |plain| in bfloat16), run twice and failing where the two
+           |plain| in bfloat16; also at the train_gemma2 and
+           train_deepseek paths' first call of each window, the plain
+           version over slices of the batch and the kv heads, and at their
+           layouts at 512-600 positions), run twice and failing where the two
            differ in bits (every backward check does), with the
            library's time where one call computes it (flash: the backward
            of scaled_dot_product_attention with the window as a boolean
            mask) and its bound.  The flash forward's cases also carry its
            time when it writes the rows' log-sum-exp (ms_with_lse).
 
-Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}.  Any failure raises: the exit code
+After each phase a line {"phase_wall": name, "s": seconds}; after the
+kernels phase one {"phase": "walls", ...} line with every phase's wall and
+the script's.  Then the kernel table ({"kernels": [...]}), the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}.  Any failure
+raises: the exit code
 is non-zero and the last line is not printed.  There is no CPU path.
 """
 import argparse
@@ -359,6 +396,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import os
 import platform
@@ -381,7 +419,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 # dense bf16 tensor-core rate (989 TFLOPS, without sparsity)
 PEAK_OPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12,
                   torch.bfloat16: 989e12}
-REPS = 20
+REPS = 10
 # topk_mag beyond the flush's lengths: one block, and tiles with 4 and 8
 # merge passes
 TOPK_STRESS_N = (4_096, 65_536, 1_048_576)
@@ -521,18 +559,21 @@ def profiled_device_ms(fn, count, match=None, reps=REPS,
                          f"{match!r} in {reps} calls, window after window")
 
 
-def check_topk_mag(n, seed):
-    """topk_mag's case, run by this script in a child process: in a process
-    that has profiled much (the paths), torch.profiler loses the first
-    device events of a later window and skews the durations of the rest,
-    so the device times are taken in a fresh CUDA context."""
+def check_topk_mags(cases):
+    """topk_mag's cases [(n, seed), ...], run by this script in one child
+    process: in a process that has profiled much (the paths),
+    torch.profiler loses the first device events of a later window and
+    skews the durations of the rest, so the device times are taken in a
+    fresh CUDA context, which profiles nothing else."""
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--topk-case", str(n), str(seed)],
-                           capture_output=True, text=True, timeout=600)
+                            "--topk-cases"] + [str(x) for case in cases
+                                               for x in case],
+                           capture_output=True, text=True, timeout=900)
     if child.returncode:
-        raise AssertionError(f"topk_mag n={n}: case failed:\n"
+        raise AssertionError(f"topk_mag {cases}: a case failed:\n"
                              f"{child.stderr[-4000:]}")
-    return json.loads(child.stdout.strip().splitlines()[-1])
+    return [json.loads(line)
+            for line in child.stdout.strip().splitlines()[-len(cases):]]
 
 
 def topk_case(dev, n, seed):
@@ -1166,9 +1207,14 @@ def first_key(name, args, kw):
 
 
 def window_key(name, args, kw):
-    """:func:`first_key` and the call's attention window (None for the
-    other kernels and for a layer without one)."""
-    return (name, args[0].dtype, kw.get("window"))
+    """:func:`first_key` and the call's attention window: a keyword of a
+    flash_attention call, or its positional argument (the sixth, as the
+    autograd Function passes it; the backward's ninth); None for the other
+    kernels and for a layer without one."""
+    at = {"flash_attention": 5, "flash_attention_bwd": 8}.get(name)
+    window = args[at] if at is not None and len(args) > at \
+        else kw.get("window")
+    return (name, args[0].dtype, window)
 
 
 @contextlib.contextmanager
@@ -1223,10 +1269,12 @@ def path_run(dev, keep_first=False, key=first_key):
                 # a parameter (a leaf that requires grad) is updated in
                 # place by the optimizer later in the run: keep its value
                 # at this call, as the activations and the forward's
-                # states it is checked with are
+                # states it is checked with are; an activation is kept
+                # detached, so that its autograd graph (the unit's saved
+                # tensors) is freed with the step
                 run["first"][k] = (tuple(
-                    a.detach().clone() if isinstance(a, torch.Tensor)
-                    and a.is_leaf and a.requires_grad else a
+                    (a.detach().clone() if a.is_leaf and a.requires_grad
+                     else a.detach()) if isinstance(a, torch.Tensor) else a
                     for a in args), kw)
             return orig[name](*args, **kw)
         return call
@@ -1984,8 +2032,8 @@ SPMD_STALENESS = 2
 # last clock waits at most ELASTIC_GATE_S for the ops to install.
 ELASTIC_PLAN = [(1, "add", 2), (2, "remove", 0)]
 ELASTIC_SLOTS = 3
-ELASTIC_CLOCKS = 4
-AUTOSCALE_CLOCKS = 3
+ELASTIC_CLOCKS = 3
+AUTOSCALE_CLOCKS = 2
 ELASTIC_GATE_S = 60.0
 # the migration's kinds of copy kernel by name: the handoff's clones (a
 # device to device copy), the reassembly's index_copy_ (the replica's
@@ -2412,7 +2460,7 @@ def run_lda_spmd_phase(dev, corpus):
 # 100,480,507 ratings).  The rank is assumed (the data set fixes none; 100
 # is the top of the ranks used for it), and the ratings are cut to about 1%.
 MF_USERS, MF_ITEMS, MF_RATINGS_FULL = 480_189, 17_770, 100_480_507
-MF_RANK, MF_RATINGS, MF_CLOCKS = 100, 1_000_000, 3
+MF_RANK, MF_RATINGS, MF_CLOCKS = 100, 1_000_000, 2
 # run_mf takes each worker's mean gradient, so the step a rating gets is
 # lr / (ratings per worker): these give it the per-rating step and the
 # per-clock shrink (lr * reg) of the JAX package's convergence benchmark
@@ -2515,7 +2563,7 @@ def run_apps_phase(dev):
 # limit.
 SERVE_MODELS = ("recurrentgemma-9b", "mamba2-130m", "gemma2-9b",
                 "deepseek-v2-lite-16b")
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4_096, 32
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4_096, 16
 # (requests, prompt tokens) where a model's differ from the default
 SERVE_SHAPE = {"gemma2-9b": (2, 8_192)}
 SERVE_WEIGHTS = "random, drawn on the card from the seed"
@@ -2553,30 +2601,53 @@ def serve_reduced(name):
 
 @contextlib.contextmanager
 def moe_routes():
-    """Inside the block, every MoE layer's routing of its input is noted
-    (``routes``: one dict a call, device tensors: ``ids`` (T, K) the chosen
-    experts, ``keep`` (T, K) whether each pair got a slot, ``gap`` (T,) the
-    K-th largest probability less the next one) before the layer runs."""
+    """Inside the block, every MoE layer's routing as ``moe.dispatch``
+    returns it to the layer is noted (``routes``: one dict a call, device
+    tensors: ``ids`` (T, K) the chosen experts, ``keep`` (T, K) whether
+    each pair got a slot, ``gap`` (T,) the K-th largest probability less
+    the next one; ``recompute`` whether the call ran inside the backward,
+    where remat recomputes a unit)."""
     from repro_torch.models import moe
 
-    orig, routes = moe.moe_fwd, []
+    orig, routes = moe.dispatch, []
 
-    def moe_fwd(cfg, ctx, p, x):
-        m = cfg.moe
-        probs = moe.router_probs(p, x.reshape(-1, x.shape[-1]))
-        _, ids, keep, _, _ = moe.dispatch(m, probs)
-        top = torch.sort(probs, dim=-1, descending=True,
-                         stable=True).values
-        routes.append({"ids": ids.view(-1, m.top_k),
-                       "keep": keep.view(-1, m.top_k),
-                       "gap": top[:, m.top_k - 1] - top[:, m.top_k]})
-        return orig(cfg, ctx, p, x)
+    def dispatch(m, probs):
+        out = orig(m, probs)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True).values
+        routes.append({"ids": out[1].view(-1, m.top_k),
+                       "keep": out[2].view(-1, m.top_k),
+                       "gap": top[:, m.top_k - 1] - top[:, m.top_k],
+                       "recompute":
+                           torch._C._current_graph_task_id() != -1})
+        return out
 
-    moe.moe_fwd = moe_fwd
+    moe.dispatch = dispatch
     try:
         yield routes
     finally:
-        moe.moe_fwd = orig
+        moe.dispatch = orig
+
+
+@contextlib.contextmanager
+def forced_routes(ids):
+    """Inside the block, the i-th MoE call routes each token to the experts
+    that ``ids[i]`` (T, K) names, in that order, weighted by its own router
+    probabilities (renormalised as ever), under a capacity that keeps every
+    pair."""
+    from repro_torch.models import moe
+
+    orig_route, orig_capacity, calls = moe.route, moe.capacity, iter(ids)
+
+    def route(probs, k):
+        forced = next(calls).to(probs.device)
+        return torch.gather(probs, 1, forced), forced
+
+    moe.route = route
+    moe.capacity = lambda m, tokens: tokens * m.top_k
+    try:
+        yield
+    finally:
+        moe.route, moe.capacity = orig_route, orig_capacity
 
 
 def route_agreement(dec, full, rows, at):
@@ -2608,6 +2679,64 @@ def route_agreement(dec, full, rows, at):
     return sorted(held), flips, drops
 
 
+def decode_parity(name, cfg, params, prompts, capacity, dev):
+    """The first decode step's logits against a full forward over the
+    prompt and that token, within PARITY_TOL of the full forward's largest
+    logit.  Every MoE layer's routes are compared between the two paths
+    (:func:`route_agreement`).  Where a request's routes differ in some
+    layer (a near-tie flipped by bfloat16 rounding), decode runs again from
+    the same caches (it rewrites the one slot it wrote) with the full
+    forward's routes forced at every MoE layer (:func:`forced_routes`), and
+    every request whose routes then agree is held; the check fails if none
+    is.  Returns the logits, the held rows, the parity and the routes'
+    differences before and after the replay."""
+    from repro_torch.models import model as M
+    from repro_torch.models.common import ShardCtx
+
+    ctx = ShardCtx()
+    batch, prompt = prompts.shape
+    pos = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
+    with torch.inference_mode(), moe_routes() as routes:
+        logits_p, caches = M.prefill(cfg, ctx, params, prompts,
+                                     capacity=capacity)
+        tok0 = M.sample_greedy(ctx, logits_p)
+        routes.clear()
+        logits_d, _ = M.decode_step(cfg, ctx, params, tok0[:, None].long(),
+                                    pos, caches)
+        n_dec = len(routes)
+        x, _, _ = M.forward(cfg, ctx, params,
+                            torch.cat([prompts, tok0[:, None].long()], 1))
+        logits_f = M.logits_of(cfg, params, x[:, prompt])
+        del x
+        full = routes[n_dec:]
+        held, flips, drop_diffs = route_agreement(routes[:n_dec], full,
+                                                  batch, prompt)
+        alike, replay = held, None
+        if len(held) < batch:
+            del routes[:]
+            with forced_routes([f["ids"].view(batch, -1, f["ids"].shape[-1])
+                                [:, prompt] for f in full]):
+                logits_d, _ = M.decode_step(cfg, ctx, params,
+                                            tok0[:, None].long(), pos, caches)
+            held, flips_after, drops_after = route_agreement(
+                routes[:n_dec], full, batch, prompt)
+            replay = {"rows_held": held, "route_flips": len(flips_after),
+                      "drop_differences": drops_after}
+        del caches, full
+    if not held:
+        raise AssertionError(f"{name}: every request's routes differ "
+                             f"between decode and the full forward: "
+                             f"{flips} {drop_diffs} {replay}")
+    rows = torch.tensor(held, device=dev)
+    scale = float(logits_f[rows].abs().max())
+    parity = float((logits_d[rows] - logits_f[rows]).abs().max()) / scale
+    return {"logits_p": logits_p, "logits_d": logits_d,
+            "logits_f": logits_f, "tok0": tok0, "held": held,
+            "parity": parity, "scale": scale, "flips": flips,
+            "drop_differences": drop_diffs, "rows_routed_alike": alike,
+            "forced_replay": replay}
+
+
 # the flash kernel's serve calls held against its plain version, by (model,
 # window): the first call of each window in each model's prefill
 FLASH_PATH_CALLS = (("recurrentgemma-9b", 2048), ("gemma2-9b", 4096),
@@ -2622,7 +2751,7 @@ def run_serve_phase(dev, seed):
     from repro_torch.launch import steps
     from repro_torch.models import model as M
     from repro_torch.models import moe
-    from repro_torch.models.common import ShardCtx, tree_leaves
+    from repro_torch.models.common import tree_leaves
 
     lines, launches, first = {}, {}, {}
     for name in SERVE_MODELS:
@@ -2720,7 +2849,6 @@ def run_serve_phase(dev, seed):
             raise AssertionError(f"{name}: flash_attention launched but no "
                                  f"device event matched its kernel's name")
 
-        ctx = ShardCtx()
         moe_line, nxt3 = None, None
         if cfg.moe is not None:
             # the MoE's drops at the published capacity factor: a prefill and
@@ -2747,31 +2875,10 @@ def run_serve_phase(dev, seed):
         pcfg = cfg if cfg.moe is None else dataclasses.replace(
             cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=PARITY_CAPACITY_FACTOR))
-        with torch.inference_mode(), moe_routes() as routes:
-            logits_p, caches = M.prefill(pcfg, ctx, params, prompts,
-                                         capacity=shape.seq_len)
-            tok0 = M.sample_greedy(ctx, logits_p)
-            routes.clear()
-            logits_d, _ = M.decode_step(
-                pcfg, ctx, params, tok0[:, None].long(),
-                torch.full((batch,), prompt, dtype=torch.int32, device=dev),
-                caches)
-            del caches
-            n_dec = len(routes)
-            x, _, _ = M.forward(pcfg, ctx, params,
-                                torch.cat([prompts, tok0[:, None].long()], 1))
-            logits_f = M.logits_of(pcfg, params, x[:, prompt])
-            del x
-            held, flips, drop_diffs = route_agreement(
-                routes[:n_dec], routes[n_dec:], batch, prompt)
-            del routes
-        if not held:
-            raise AssertionError(f"{name}: every request's routes differ "
-                                 f"between decode and the full forward: "
-                                 f"{flips} {drop_diffs}")
-        rows = torch.tensor(held, device=dev)
-        scale = float(logits_f[rows].abs().max())
-        parity = float((logits_d[rows] - logits_f[rows]).abs().max()) / scale
+        par = decode_parity(name, pcfg, params, prompts, shape.seq_len, dev)
+        logits_p, logits_d, logits_f, tok0 = (par.pop(k) for k in (
+            "logits_p", "logits_d", "logits_f", "tok0"))
+        held, parity, scale = par["held"], par["parity"], par["scale"]
         finite = bool(torch.isfinite(logits_p).all()
                       and torch.isfinite(logits_d).all()
                       and torch.isfinite(logits_f).all())
@@ -2817,8 +2924,10 @@ def run_serve_phase(dev, seed):
             "parity_max_rel_err": parity, "parity_tolerance": PARITY_TOL,
             "parity_rows_held": held,
             **({"parity_capacity_factor": PARITY_CAPACITY_FACTOR,
-                "parity_route_flips": flips,
-                "parity_route_drop_differences": drop_diffs}
+                "parity_route_flips": par["flips"],
+                "parity_route_drop_differences": par["drop_differences"],
+                "parity_rows_routed_alike": par["rows_routed_alike"],
+                "parity_forced_replay": par["forced_replay"]}
                if cfg.moe is not None else {}),
             "logits_max_abs": scale, "finite": finite,
             "tokens_in_vocab": in_vocab,
@@ -2858,7 +2967,7 @@ def run_serve_phase(dev, seed):
 TRAIN_ARCH = "mamba2-130m"
 TRAIN_SEQ = 4_096                 # train_4k's sequence length
 TRAIN_REPLICAS, TRAIN_ROWS = 2, 4  # sequences a replica a step
-TRAIN_STEPS = 8
+TRAIN_STEPS = 6
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
 TRAIN_STALENESS = 2
 # Adam moves an entry by about lr_t a step (5e-4, then 1e-3 after the
@@ -3289,7 +3398,7 @@ def run_train_phase(dev, seed, smi):
 TRAIN_RG_ARCH = "recurrentgemma-9b"
 TRAIN_RG_LAYERS = 5     # one rec/rec/attn unit and the model's two-layer tail
 TRAIN_RG_ROWS = 2       # sequences a step
-TRAIN_RG_STEPS = 6
+TRAIN_RG_STEPS = 4
 TRAIN_RG_REDUCED = {
     "layers": f"{TRAIN_RG_LAYERS} of 38: one rec/rec/attn unit and the "
               f"model's own two-layer float32 tail",
@@ -3314,6 +3423,8 @@ FLASH_BWD_ENTRY = {
                    "32-key tile walking the band's query tiles and the G "
                    "heads, then dq per 32-row tile (three launches)"}
 RGLRU_BWD_KERNELS = re.compile(r"rglru_bwd_(chain|chunk|dparam)_kernel")
+RGLRU_FWD_KERNEL = re.compile(r"\brglru_kernel\b")
+VAP_KERNEL = re.compile(r"vap_accum_kernel")
 FLASH_BWD_KERNELS = re.compile(r"flash_bwd_(dot|dkdv|dq|kv_wgmma|sum|q_wgmma)"
                                r"_kernel")
 FLASH_FWD_KERNELS = re.compile(r"flash_(wgmma|fwd)_kernel")
@@ -3475,12 +3586,12 @@ def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
     timing.  The bound counts 2 (3 dh + 2 dv) flops a (query, key) pair the
     mask keeps, at the inputs' type's rate, and q, k, v, o, do, lse read and
     dq, dk, dv written once."""
-    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention import ops
 
     q, k, v, out, dout = (t.detach() for t in (q, k, v, out, dout))
     args = (q, k, v, q_pos, k_pos, out, lse, dout, window, cap)
     got = ops.flash_attention_bwd(*args)
-    want = ref.attention_bwd(q, k, v, q_pos, k_pos, window, cap, dout)
+    want = flash_bwd_plain(q, k, v, q_pos, k_pos, window, cap, dout)
     torch.cuda.synchronize()
     ok, err, need = _bwd_close(got, want, FLASH_BWD_TOL)
     if not ok:
@@ -3498,8 +3609,8 @@ def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
     big = q.numel() > 10_000_000
     ms = cuda_ms(lambda: ops.flash_attention_bwd(*args),
                  reps=5 if big else REPS, warmup=1 if big else 3)
-    plain_ms = cuda_ms(lambda: ref.attention_bwd(q, k, v, q_pos, k_pos,
-                                                 window, cap, dout),
+    plain_ms = cuda_ms(lambda: flash_bwd_plain(q, k, v, q_pos, k_pos,
+                                               window, cap, dout),
                        reps=3 if big else 5, warmup=1)
     mask = k_pos[None, :].long() <= q_pos[:, None].long()
     if window is not None:
@@ -3547,15 +3658,21 @@ def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
 # (b, sq, skv, kvh, G, dh, dv, window, cap, empty key slots): no window; a
 # softcap with G 4; dv != dh; a window with a cap; a q suffix over ragged
 # sq / skv with the second half of the key slots empty (rows that see no
-# key); dv > dh, both off the tiles; the train call's heads and width (kv
-# heads 1, G 16, d 256) at 700 positions with a window below one tile
+# key); dv > dh, both off the tiles; the RecurrentGemma train call's heads
+# and width (kv heads 1, G 16, d 256) at 700 positions with a window below
+# one tile; Gemma2-9B's (kv heads 8, G 2, d 256, softcap 50) at 600
+# positions, windowed below one tile and global; DeepSeek's MLA (16 kv
+# heads, G 1, q / k 192, v 128, causal) at 512 positions
 FLASH_BWD_CASES = ((2, 256, 256, 2, 2, 64, 64, None, None, False),
                    (1, 300, 300, 1, 4, 32, 32, None, 50.0, False),
                    (1, 128, 128, 4, 1, 192, 128, None, None, False),
                    (1, 512, 512, 1, 1, 128, 128, 64, 30.0, False),
                    (1, 200, 333, 1, 4, 128, 64, 100, None, True),
                    (2, 130, 130, 1, 2, 48, 80, 50, None, False),
-                   (1, 700, 700, 1, 16, 256, 256, 40, None, False))
+                   (1, 700, 700, 1, 16, 256, 256, 40, None, False),
+                   (1, 600, 600, 8, 2, 256, 256, 40, 50.0, False),
+                   (1, 600, 600, 8, 2, 256, 256, None, 50.0, False),
+                   (2, 512, 512, 16, 1, 192, 128, None, None, False))
 
 
 def flash_bwd_stress_cases(dev):
@@ -3586,11 +3703,153 @@ def flash_bwd_stress_cases(dev):
     return out
 
 
-def run_train_rg_phase(dev, seed, smi):
-    """RecurrentGemma-9B at full width, TRAIN_RG_LAYERS layers, trained on
-    the card as one replica on TRAIN_RG_ROWS sequences of TRAIN_SEQ
-    SyntheticLM tokens a step; Adam, cvap.  Returns (launches, the
-    backwards' first calls {(name, dtype): (args, kw)}, line)."""
+def train_launches_per_step(cfg, remat):
+    """One train step's launches by entry as ``M.group_layers`` implies
+    them: under remat a unit layer's forward runs twice (the backward
+    recomputes the unit), a prefix or tail layer's once; each backward
+    once.  The RG-LRU's entries by dtype: the stacked units' bfloat16, and
+    float32 outside them (RecurrentGemma's tail, whose float32 1-D leaves
+    promote the residual stream).  Also the flash backward's launches a
+    step by window."""
+    from repro_torch.models import model as M
+
+    prefix, unit, n_units, tail = M.group_layers(cfg, M.layer_metas(cfg))
+    fwd = 2 if remat else 1
+
+    def n(metas, kind):
+        return sum(m.kind == kind for m in metas)
+
+    want = {"flash_attention": n(prefix + tail, "attn")
+            + fwd * n_units * n(unit, "attn"),
+            "flash_attention_bwd": n(prefix + tail, "attn")
+            + n_units * n(unit, "attn")}
+    if cfg.recurrent is not None and cfg.recurrent.kind == "rglru":
+        want.update({"rglru_bf16": fwd * n_units * n(unit, "rec"),
+                     "rglru_f32": n(prefix + tail, "rec"),
+                     "rglru_bwd_bf16": n_units * n(unit, "rec"),
+                     "rglru_bwd_f32": n(prefix + tail, "rec")})
+    by_window = collections.Counter(
+        m.window for m in prefix + tail + unit * n_units if m.kind == "attn")
+    return want, dict(by_window)
+
+
+def train_first_bwd_keys(cfg, want, by_window):
+    """The backwards' first calls a train step makes, by (name, dtype,
+    window), from :func:`train_launches_per_step`'s counts: the flash
+    backward's in the compute dtype once a window, the RG-LRU's once an
+    entry's dtype."""
+    keys = {("flash_attention_bwd", getattr(torch, cfg.dtype), w)
+            for w in by_window}
+    return keys | {("rglru_scan_bwd", dtype, None)
+                   for entry, dtype in (("rglru_bwd_bf16", torch.bfloat16),
+                                        ("rglru_bwd_f32", torch.float32))
+                   if want.get(entry)}
+
+
+def moe_step_routes(calls, cfg, remat):
+    """One train step's MoE routing from its dispatch calls
+    (:func:`moe_routes`): the pairs
+    dropped in each MoE layer's forward, and the pairs whose expert or
+    slot differ between a unit's forward and its recomputation in the
+    backward (remat).  The forward runs the MoE layers in layer order, the
+    backward recomputes the units in reverse, each unit's layers in
+    order."""
+    from repro_torch.models import model as M
+
+    prefix, unit, n_units, tail = M.group_layers(cfg, M.layer_metas(cfg))
+    fwd = [c for c in calls if not c["recompute"]]
+    again = [c for c in calls if c["recompute"]]
+    n_pre = sum(m.use_moe for m in prefix)
+    per_unit = sum(m.use_moe for m in unit)
+    # the forward's index of each recomputed call
+    order = [n_pre + u * per_unit + j for u in reversed(range(n_units))
+             for j in range(per_unit)] if remat else []
+    if len(again) != len(order) or len(fwd) != n_pre + n_units * per_unit \
+            + sum(m.use_moe for m in tail):
+        raise AssertionError(f"MoE dispatch calls: {len(fwd)} forward, "
+                             f"{len(again)} recomputed, not as the layers "
+                             f"imply")
+    differ = sum(int((fwd[i]["ids"] != r["ids"]).sum()
+                     + (fwd[i]["keep"] != r["keep"]).sum())
+                 for i, r in zip(order, again))
+    return [int((~c["keep"]).sum()) for c in fwd], differ
+
+
+def flash_bwd_plain(q, k, v, q_pos, k_pos, window, cap, dout):
+    """``ref.attention_bwd`` over slices of the batch and the kv heads
+    where one float32 logits tensor of the whole call would pass
+    FLASH_PLAIN_SLICE_BYTES (the plain backward holds several: at
+    Gemma2-9B's train call 2 x 16 heads x 8,192^2 float32 is 8.6 GB).
+    Batch rows and kv heads are independent, so the slices' results are
+    the whole call's."""
+    from repro_torch.kernels.flash_attention import ref
+
+    b, sq, kvh, G, _ = q.shape
+    per_head = 4 * G * sq * k.shape[1]
+    heads = max(1, min(kvh, int(FLASH_PLAIN_SLICE_BYTES // per_head)))
+    if heads >= kvh and b * per_head * kvh <= FLASH_PLAIN_SLICE_BYTES:
+        return ref.attention_bwd(q, k, v, q_pos, k_pos, window, cap, dout)
+    parts = [[ref.attention_bwd(q[i:i + 1, :, h:h + heads],
+                                k[i:i + 1, :, h:h + heads],
+                                v[i:i + 1, :, h:h + heads], q_pos, k_pos,
+                                window, cap, dout[i:i + 1, :, h:h + heads])
+              for h in range(0, kvh, heads)] for i in range(b)]
+    return tuple(torch.cat([torch.cat([p[j] for p in row], 2)
+                            for row in parts], 0) for j in range(3))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainCell:
+    """One full-width, reduced-depth training cell on the card: one
+    replica, ``rows`` SyntheticLM sequences of ``seq`` tokens a step,
+    ``steps`` Adam steps under cvap(TRAIN_STALENESS, TRAIN_VALUE_BOUND),
+    remat on."""
+    phase: str
+    arch: str
+    layers: int
+    rows: int
+    seq: int
+    steps: int
+    reduced: dict
+    notes: dict = dataclasses.field(default_factory=dict)
+
+
+# the card's 80 GB, which a training cell's peak must stay under
+TRAIN_PEAK_LIMIT = 80e9
+TRAIN_RG = TrainCell(
+    "train_rg", TRAIN_RG_ARCH, TRAIN_RG_LAYERS, TRAIN_RG_ROWS, TRAIN_SEQ,
+    TRAIN_RG_STEPS, TRAIN_RG_REDUCED)
+TRAIN_GEMMA2 = TrainCell(
+    "train_gemma2", "gemma2-9b", 4, 2, 8_192, 4,
+    {"layers": "4 of 42: two local/global units (the model's period)",
+     "global_batch": "2 sequences of 8,192 tokens (train_4k's 256 of "
+                     "4,096 cut to 2, at 8,192 so that the 4,096-token "
+                     "window masks on the local layers)",
+     "steps": "4",
+     "replicas": "1 (the reference's mesh=None step): the float32 master, "
+                 "Adam's moments and δ take 16 bytes a parameter, 27.4 GB "
+                 "at 4 layers, 148 GB at 42"})
+TRAIN_DEEPSEEK = TrainCell(
+    "train_deepseek", "deepseek-v2-lite-16b", 3, 2, TRAIN_SEQ, 4,
+    {"layers": "3 of 27: the dense first layer, then two MoE layers",
+     "global_batch": "2 sequences of train_4k's 256",
+     "steps": "4",
+     "replicas": "1 (the reference's mesh=None step): 16 bytes a "
+                 "parameter, 26.7 GB at 3 layers, 251 GB at 27"},
+    {"moe_gradient_bits": "the dispatch gather's and the combine's "
+                          "backward accumulate through PyTorch's index_put "
+                          "(atomic adds), whose float sum order is not "
+                          "fixed: "
+                          "the gradient is not bit-repeatable run to run "
+                          "(the forward and the routes are)"})
+TRAIN_LM_CELLS = (TRAIN_GEMMA2, TRAIN_DEEPSEEK)
+
+
+def run_train_lm_phase(dev, seed, smi, cell: TrainCell):
+    """``cell.arch`` at full width and ``cell.layers`` layers, trained on
+    the card as one replica through init_train_state and make_train_step.
+    Returns (launches, the backwards' first calls {(name, dtype, window):
+    (args, kw)}, line)."""
     from repro_torch.configs import ConsistencySpec, TrainConfig, get_config
     from repro_torch.core import policies
     from repro_torch.data import SyntheticLM, batches
@@ -3601,29 +3860,24 @@ def run_train_rg_phase(dev, seed, smi):
     from repro_torch.launch import steps
     from repro_torch.launch.state import init_train_state
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.models.common import tree_leaves
 
-    cfg = dataclasses.replace(get_config(TRAIN_RG_ARCH),
-                              n_layers=TRAIN_RG_LAYERS)  # bfloat16 compute
-    tcfg = TrainConfig(arch=TRAIN_RG_ARCH, optimizer="adam", lr=TRAIN_LR,
+    name = cell.phase
+    cfg = dataclasses.replace(get_config(cell.arch),
+                              n_layers=cell.layers)  # bfloat16 compute
+    tcfg = TrainConfig(arch=cell.arch, optimizer="adam", lr=TRAIN_LR,
                        warmup_steps=TRAIN_WARMUP, seed=seed,
                        consistency=ConsistencySpec(
                            model="cvap", staleness=TRAIN_STALENESS,
                            value_bound=TRAIN_VALUE_BOUND))
     policy = policies.from_spec(tcfg.consistency)
-    # each unit layer's forward runs twice a step under remat, a tail
-    # layer's once; each backward once
-    _, unit, n_units, tail = M.group_layers(cfg, M.layer_metas(cfg))
-    fwd = 2 if tcfg.remat else 1
-    rec_unit = n_units * sum(m.kind == "rec" for m in unit)
-    rec_tail = sum(m.kind == "rec" for m in tail)
-    want_step = {"rglru_bf16": fwd * rec_unit, "rglru_f32": rec_tail,
-                 "rglru_bwd_bf16": rec_unit, "rglru_bwd_f32": rec_tail,
-                 "flash_attention": fwd * n_units * sum(
-                     m.kind == "attn" for m in unit),
-                 "flash_attention_bwd": n_units * sum(
-                     m.kind == "attn" for m in unit)}
+    want_step, want_bwd_by_window = train_launches_per_step(cfg, tcfg.remat)
+    gc.collect()
     torch.cuda.empty_cache()
+    # what earlier phases still hold (the first calls kept for the kernels
+    # phase), inside this phase's peak
+    held_at_start = torch.cuda.memory_allocated(dev)
     t = time.perf_counter()
     state = init_train_state(cfg, tcfg, tp=1, dp=1, seed=seed, device=dev)
     torch.cuda.synchronize()
@@ -3637,19 +3891,19 @@ def run_train_rg_phase(dev, seed, smi):
                                  + tree_leaves(state.opt.nu)
                                  + list(state.sync.delta.values()))}
     step_fn = steps.make_train_step(cfg, tcfg)
-    it = batches(SyntheticLM(cfg.vocab_size, seed=seed), TRAIN_RG_ROWS,
-                 TRAIN_SEQ)
+    it = batches(SyntheticLM(cfg.vocab_size, seed=seed), cell.rows, cell.seq)
 
     # the plain versions are counted, and must not run on this path
     plain_fns = {(rg_ref, "rglru"), (rg_ref, "rglru_bwd"),
                  (fa_ref, "attention"), (fa_ref, "attention_bwd")}
-    plain = {name: 0 for _, name in plain_fns}
-    orig_plain = {(mod, name): getattr(mod, name) for mod, name in plain_fns}
+    plain = {fn_name: 0 for _, fn_name in plain_fns}
+    orig_plain = {(mod, fn_name): getattr(mod, fn_name)
+                  for mod, fn_name in plain_fns}
 
-    def counting(mod, name):
+    def counting(mod, fn_name):
         def call(*a, **kw):
-            plain[name] += 1
-            return orig_plain[(mod, name)](*a, **kw)
+            plain[fn_name] += 1
+            return orig_plain[(mod, fn_name)](*a, **kw)
         return call
 
     def counters():
@@ -3657,40 +3911,82 @@ def run_train_rg_phase(dev, seed, smi):
                 "flash_attention": fa_ops.launches,
                 "flash_attention_bwd": fa_ops.bwd_launches}
 
-    for mod, name in plain_fns:
-        setattr(mod, name, counting(mod, name))
+    for mod, fn_name in plain_fns:
+        setattr(mod, fn_name, counting(mod, fn_name))
+    moe_line = None
     try:
-        with path_run(dev, keep_first=True) as run:
-            state, hist = _train_steps(state, step_fn, it, TRAIN_RG_STEPS,
-                                       run, policy, counters)
+        with path_run(dev, keep_first=True, key=window_key) as run, \
+                moe_routes() as routed:
+            state, hist = _train_steps(state, step_fn, it, cell.steps, run,
+                                       policy, counters)
         walls, losses, synced, invariant = (hist[k] for k in (
             "walls", "losses", "synced", "invariant"))
         per_step = [{k: c[k] for k in want_step} for c in hist["launches"]]
         peak = torch.cuda.max_memory_allocated(dev)
         launches = run["launches"]
         by_entry = run["rglru_scan_by_entry"]
+        bwd_by_window = {str(w): n // cell.steps
+                         for (k, _, w), n in run["by_key"].items()
+                         if k == "flash_attention_bwd"}
         first = {k: v for k, v in run["first"].items()
                  if k[0] in ("rglru_scan_bwd", "flash_attention_bwd")}
-        first_shapes = {f"{name} {_dname(dtype)}": [
+        first_shapes = {f"{k[0]} {_dname(k[1])} window {k[2]}": [
             list(a.shape) for a in args if isinstance(a, torch.Tensor)]
-            for (name, dtype), (args, _) in first.items()}
+            for k, (args, _) in first.items()}
         del run
+        if cfg.moe is not None:
+            # each step's dispatch calls: the forward's drops by layer, and
+            # the routes the backward's recomputation changed
+            n_calls = len(routed) // cell.steps
+            drops, differ = zip(*(moe_step_routes(
+                routed[i * n_calls:(i + 1) * n_calls], cfg, tcfg.remat)
+                for i in range(cell.steps)))
+            moe_line = {
+                "capacity_factor": cfg.moe.capacity_factor,
+                "capacity": moe.capacity(cfg.moe, cell.rows * cell.seq),
+                "pairs_per_layer": routed[0]["keep"].numel(),
+                "dropped_pairs_by_step_and_layer": [list(d) for d in drops],
+                "remat_route_differences": sum(differ),
+                "dispatch_calls_per_step": n_calls}
+        del routed
 
-        # one more step, profiled (its counts checked apart)
-        batch = next(it)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with path_run(dev) as prun, profile(
-                activities=[ProfilerActivity.CPU,
-                            ProfilerActivity.CUDA]) as prof:
-            state, _ = step_fn(state, batch)
+        # one more step, profiled (its counts checked apart); a window whose
+        # device events miss a launch of the forward kernels is discarded
+        # and another step taken, as profiled_device_ms does
+        discarded = []
+        for _ in range(3):
+            batch = next(it)
             torch.cuda.synchronize()
-        prof_wall_s = time.perf_counter() - t
-        prof_launches = prun["launches"]
-        del prun
+            t = time.perf_counter()
+            with path_run(dev) as prun, profile(
+                    activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+                state, _ = step_fn(state, batch)
+                torch.cuda.synchronize()
+            prof_wall_s = time.perf_counter() - t
+            prof_launches = prun["launches"]
+            del prun
+            events = collections.Counter()
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    for kname, pattern in (("flash_attention",
+                                            FLASH_FWD_KERNELS),
+                                           ("vap_accum", VAP_KERNEL),
+                                           ("rglru_scan", RGLRU_FWD_KERNEL)):
+                        events[kname] += bool(pattern.search(e.name))
+            if all(events[k] == prof_launches[k] for k in events):
+                break
+            discarded.append(dict(events))
+            print(f"profiler: {name} step's window with device events "
+                  f"{dict(events)} for launches {prof_launches} discarded",
+                  file=sys.stderr)
+            del prof
+        else:
+            raise AssertionError(f"{name}: profiler windows {discarded} "
+                                 f"miss launches, window after window")
     finally:
-        for (mod, name), fn in orig_plain.items():
-            setattr(mod, name, fn)
+        for (mod, fn_name), fn in orig_plain.items():
+            setattr(mod, fn_name, fn)
     device_s = device_seconds(prof)
     busy_s = sum(device_s.values())
 
@@ -3703,26 +3999,32 @@ def run_train_rg_phase(dev, seed, smi):
     del state, prof
     torch.cuda.empty_cache()
 
-    tokens = TRAIN_RG_ROWS * TRAIN_SEQ
+    tokens = cell.rows * cell.seq
     step_med = statistics.median(walls[1:])
-    card_vs_cpu = train_step_card_vs_cpu(dev, seed, TRAIN_RG_ARCH)
-    line = {"phase": "train_rg", "model": TRAIN_RG_ARCH, "nvidia_smi": smi,
+    card_vs_cpu = train_step_card_vs_cpu(dev, seed, cell.arch)
+    rglru = "rglru_bf16" in want_step
+    fa_want = want_step["flash_attention_bwd"]
+    line = {"phase": name, "model": cell.arch, "nvidia_smi": smi,
             "params": n_params, "layers": cfg.n_layers,
             "layer_kinds": [m.kind for m in M.layer_metas(cfg)],
-            "d_model": cfg.d_model, "rglru_width": cfg.recurrent.width,
+            "layer_windows": [m.window for m in M.layer_metas(cfg)],
+            "d_model": cfg.d_model,
+            **({"rglru_width": cfg.recurrent.width} if rglru else {}),
             "heads": f"{cfg.n_heads} x {cfg.d_head}, {cfg.n_kv_heads} kv",
             "window": cfg.window, "d_ff": cfg.d_ff,
             "vocab": cfg.vocab_size, "dtype": cfg.dtype,
             "master_dtype": "float32", "state_bytes": state_bytes,
-            "replicas": 1, "rows": TRAIN_RG_ROWS, "seq_len": TRAIN_SEQ,
-            "steps": TRAIN_RG_STEPS, "reduced": TRAIN_RG_REDUCED,
+            "replicas": 1, "rows": cell.rows, "seq_len": cell.seq,
+            "steps": cell.steps, "reduced": cell.reduced, **cell.notes,
             "optimizer": "adam", "lr": TRAIN_LR,
             "warmup_steps": TRAIN_WARMUP, "remat": tcfg.remat,
             "policy": f"cvap({TRAIN_STALENESS}, {TRAIN_VALUE_BOUND})",
             "init_s": init_s, "step_wall_s": walls,
             "step_wall_median_s": step_med,
             "tokens_per_s": tokens / step_med,
-            "peak_device_bytes": peak, "losses": losses, "synced": synced,
+            "peak_device_bytes": peak,
+            "device_bytes_held_at_start": held_at_start,
+            "losses": losses, "synced": synced,
             "triggers": hist["triggers"], "delta_max_abs": hist["gmax"],
             "vap_invariant_ok": invariant,
             "launches": {k: launches[k] for k in (
@@ -3730,15 +4032,21 @@ def run_train_rg_phase(dev, seed, smi):
                 "flash_attention_bwd", "vap_accum")},
             "rglru_scan_by_entry": by_entry,
             "launches_per_step": per_step, "want_per_step": want_step,
-            "vap_accum_per_step": launches["vap_accum"] / TRAIN_RG_STEPS,
+            "flash_attention_bwd_per_step_by_window": bwd_by_window,
+            "want_flash_attention_bwd_per_step_by_window": {
+                str(w): n for w, n in want_bwd_by_window.items()},
+            "vap_accum_per_step": launches["vap_accum"] / cell.steps,
             "leaves": n_leaves, "plain_calls": plain,
             "first_backward_calls": first_shapes,
+            **({"moe": moe_line} if moe_line else {}),
             "profiled": {"what": "one more step", "wall_s": prof_wall_s,
+                         "windows_discarded": discarded,
                          "device_busy_s": busy_s,
                          "device_idle_share": 1.0 - busy_s / prof_wall_s,
                          "launches": {k: prof_launches[k] for k in (
                              "rglru_scan", "rglru_scan_bwd",
-                             "flash_attention", "flash_attention_bwd")},
+                             "flash_attention", "flash_attention_bwd",
+                             "vap_accum")},
                          "rglru_scan_forward_device_s": rg_fwd,
                          "rglru_scan_backward_device_s": sum(
                              rg_bwd.values()),
@@ -3755,38 +4063,49 @@ def run_train_rg_phase(dev, seed, smi):
             "card_vs_cpu_step": card_vs_cpu}
     emit(line)
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train_rg: a loss is not finite: {losses}")
+        raise AssertionError(f"{name}: a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train_rg: the loss did not fall: {losses}")
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
     if not all(invariant):
-        raise AssertionError(f"train_rg: the VAP invariant broke: "
+        raise AssertionError(f"{name}: the VAP invariant broke: "
                              f"{invariant}")
     if not any(synced):
-        raise AssertionError(f"train_rg: no step synced: {synced}")
+        raise AssertionError(f"{name}: no step synced: {synced}")
     if any(s != want_step for s in per_step):
-        raise AssertionError(f"train_rg: launches a step {per_step}, not "
+        raise AssertionError(f"{name}: launches a step {per_step}, not "
                              f"{want_step}")
-    if launches["vap_accum"] != n_leaves * TRAIN_RG_STEPS:
-        raise AssertionError(f"train_rg: vap_accum launched "
+    if bwd_by_window != line["want_flash_attention_bwd_per_step_by_window"]:
+        raise AssertionError(f"{name}: the flash backward's launches a step "
+                             f"by window {bwd_by_window}, not "
+                             f"{want_bwd_by_window}")
+    if launches["vap_accum"] != n_leaves * cell.steps:
+        raise AssertionError(f"{name}: vap_accum launched "
                              f"{launches['vap_accum']}, not one a leaf a "
                              f"step")
+    want_prof_bwd = (want_step.get("rglru_bwd_bf16", 0)
+                     + want_step.get("rglru_bwd_f32", 0), fa_want)
     if (prof_launches["rglru_scan_bwd"], prof_launches["flash_attention_bwd"]
-            ) != (want_step["rglru_bwd_bf16"] + want_step["rglru_bwd_f32"],
-                  want_step["flash_attention_bwd"]):
-        raise AssertionError(f"train_rg: the profiled step launched "
+            ) != want_prof_bwd:
+        raise AssertionError(f"{name}: the profiled step launched "
                              f"{prof_launches}")
     if any(plain.values()):
-        raise AssertionError(f"train_rg: the plain versions ran: {plain}")
-    if not (rg_bwd and fa_bwd and fa_fwd and rg_fwd):
-        raise AssertionError("train_rg: the profile shows no backward or "
-                             "forward kernel by name")
-    if set(first) != {("rglru_scan_bwd", torch.bfloat16),
-                      ("rglru_scan_bwd", torch.float32),
-                      ("flash_attention_bwd", torch.bfloat16)}:
-        raise AssertionError(f"train_rg: first backward calls noted "
+        raise AssertionError(f"{name}: the plain versions ran: {plain}")
+    if not (fa_bwd and fa_fwd and (rg_bwd and rg_fwd or not rglru)):
+        raise AssertionError(f"{name}: the profile shows no backward or "
+                             f"forward kernel by name")
+    if set(first) != train_first_bwd_keys(cfg, want_step,
+                                          want_bwd_by_window):
+        raise AssertionError(f"{name}: first backward calls noted "
                              f"{sorted(map(str, first))}")
+    if peak >= TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"{name}: peak device memory {peak} bytes, not "
+                             f"under {TRAIN_PEAK_LIMIT:.0e}")
+    if moe_line is not None and moe_line["remat_route_differences"]:
+        raise AssertionError(f"{name}: remat's recomputation routed "
+                             f"{moe_line['remat_route_differences']} pairs "
+                             f"otherwise than the forward")
     if not card_vs_cpu["ok"]:
-        raise AssertionError(f"train_rg: a step on the card != on the CPU: "
+        raise AssertionError(f"{name}: a step on the card != on the CPU: "
                              f"{card_vs_cpu}")
     return launches, first, line
 
@@ -3803,21 +4122,28 @@ def path_shapes(calls):
     return apply, sorted(set(calls["topk_mag"]))
 
 
+T_START = time.perf_counter()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve phase's weights and prompts")
-    ap.add_argument("--topk-case", type=int, nargs=2, metavar=("N", "SEED"),
-                    help="run only topk_mag's case at N magnitudes and print "
-                         "it (the smoke runs each in a child process)")
+    ap.add_argument("--topk-cases", type=int, nargs="+",
+                    metavar="N SEED",
+                    help="run only topk_mag's cases at N magnitudes from "
+                         "SEED, pair by pair, and print each (the smoke runs "
+                         "them in a child process)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's smoke test runs "
                  "only on the card")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
-    if args.topk_case:
-        emit(topk_case(torch.device("cuda"), *args.topk_case))
+    if args.topk_cases:
+        pairs = args.topk_cases
+        for n, seed in zip(pairs[::2], pairs[1::2]):
+            emit(topk_case(torch.device("cuda"), n, seed))
         return
     from repro_torch.kernels import _build
 
@@ -3837,32 +4163,59 @@ def main() -> None:
           "build_cached": _build.BUILD_INFO["cached"],
           "registers": {k[-40:]: int(v) for k, v in regs}})
 
+    walls = {}
+
+    def timed(phase, fn, *a):
+        """fn(*a), its wall printed on a line of its own."""
+        t = time.perf_counter()
+        out = fn(*a)
+        walls[phase] = time.perf_counter() - t
+        emit({"phase_wall": phase, "s": walls[phase]})
+        return out
+
     t = time.perf_counter()
     corpus = synthetic_corpus(n_docs=N_DOCS, vocab_size=VOCAB,
                               n_topics=TRUE_TOPICS, doc_len=DOC_LEN, seed=0)
     corpus_s = time.perf_counter() - t
-    launches, calls, lda_wall_s = run_lda_phase(dev, corpus, corpus_s)
-    wire_launches, wire_wall_s = run_wire_phase(dev, corpus, lda_wall_s)
-    durable_launches, replay_launches = run_durable_phase(dev, corpus,
-                                                          wire_wall_s)
+    launches, calls, lda_wall_s = timed("lda", run_lda_phase, dev, corpus,
+                                        corpus_s)
+    wire_launches, wire_wall_s = timed("wire", run_wire_phase, dev, corpus,
+                                       lda_wall_s)
+    durable_launches, replay_launches = timed(
+        "durable", run_durable_phase, dev, corpus, wire_wall_s)
     (replica_launches, replica_calls, tcp_launches,
-     ingest_launches) = run_replicas_phase(dev, corpus, wire_wall_s)
+     ingest_launches) = timed("replicas", run_replicas_phase, dev, corpus,
+                              wire_wall_s)
     (elastic_launches, elastic_by_site,
-     autoscale_launches) = run_elastic_phase(dev, corpus, wire_wall_s)
-    spmd_launches, vap_shapes = run_lda_spmd_phase(dev, corpus)
+     autoscale_launches) = timed("elastic", run_elastic_phase, dev, corpus,
+                                 wire_wall_s)
+    spmd_launches, vap_shapes = timed("lda_spmd", run_lda_spmd_phase, dev,
+                                      corpus)
     launches.update(spmd_launches)
-    app_launches, app_calls = run_apps_phase(dev)
-    serve_launches, first, serve_lines = run_serve_phase(dev, args.seed)
+    app_launches, app_calls = timed("apps", run_apps_phase, dev)
+    serve_launches, first, serve_lines = timed("serve", run_serve_phase, dev,
+                                               args.seed)
     for name in ("flash_attention", "rglru_scan"):
         launches[name] = serve_launches["recurrentgemma-9b"][name]
     launches["ssd_scan"] = serve_launches["mamba2-130m"]["ssd_scan"]
-    train_launches, first_bwd, train_line = run_train_phase(dev, args.seed,
-                                                            smi)
+    train_launches, first_bwd, train_line = timed(
+        "train", run_train_phase, dev, args.seed, smi)
     launches["ssd_scan_bwd"] = train_launches["ssd_scan_bwd"]
-    train_rg_launches, first_rg, train_rg_line = run_train_rg_phase(
-        dev, args.seed, smi)
+    train_rg_launches, first_rg, train_rg_line = timed(
+        "train_rg", run_train_lm_phase, dev, args.seed, smi, TRAIN_RG)
     for name in ("rglru_scan_bwd", "flash_attention_bwd"):
         launches[name] = train_rg_launches[name]
+    train_lm = {cell.phase: timed(cell.phase, run_train_lm_phase, dev,
+                                  args.seed, smi, cell)
+                for cell in TRAIN_LM_CELLS}
+    t_kernels = time.perf_counter()
+    kernels_s, t_part = {}, [t_kernels]
+
+    def part_done(name):
+        """The kernels phase's wall, part by part."""
+        now = time.perf_counter()
+        kernels_s[name] = now - t_part[0]
+        t_part[0] = now
 
     # first the paths' shapes (the table's rows), then stress shapes: a
     # batch 40,000 rows deep with sentinels in f64 and f32, a batch of 4,096
@@ -3887,9 +4240,9 @@ def main() -> None:
            check_ps_apply(dev, R, C, 40_000, torch.float32, 11, True),
            check_ps_apply(dev, R, C, 4_096, torch.float64, 12, False,
                           one_row=True)],
-        "topk_mag": [check_topk_mag(n, 20 + i)
-                     for i, n in enumerate(topk_lengths)]
-        + [check_topk_mag(n, 30 + i) for i, n in enumerate(TOPK_STRESS_N)],
+        "topk_mag": check_topk_mags(
+            [(n, 20 + i) for i, n in enumerate(topk_lengths)]
+            + [(n, 30 + i) for i, n in enumerate(TOPK_STRESS_N)]),
         "vap_accum": [check_vap_accum(dev, shape, torch.float32, 40 + i)
                       for i, shape in enumerate(vap_shapes)]
         + [check_vap_accum(dev, big, torch.bfloat16, 50),
@@ -3900,6 +4253,7 @@ def main() -> None:
            check_vap_accum(dev, vap_shapes[-1], torch.bfloat16, 54,
                            special=True)],
     }
+    part_done("ps_apply, topk_mag, vap_accum")
     # the LLM kernels: first at the serve path's first call, then stress
     # (rglru_scan: the serve path's first bfloat16 call, then the float32
     # tail's first)
@@ -3923,7 +4277,9 @@ def main() -> None:
                                 None)])]
     del first, x, B, C
     torch.cuda.empty_cache()
+    part_done("LLM forwards at the paths' calls")
     stress = llm_stress_cases(dev)
+    part_done("LLM forwards' stress cases")
     for name, path_cases in path_llm.items():
         cases[name] = path_cases + stress[name]
     # the ssd_scan backward at the train path's first call, then stress;
@@ -3935,6 +4291,7 @@ def main() -> None:
     cases["ssd_scan_bwd"][0]["device_ms_by_kernel"] = train_line[
         "profiled"]["ssd_scan_backward_ms_per_call_by_name"]
     del first_bwd
+    part_done("ssd_scan backward")
     # the rglru_scan backward at the train_rg path's first call in each
     # dtype (the unit's bfloat16, the tail's float32), then stress; the
     # flash_attention backward at its first call, then stress; each first
@@ -3942,11 +4299,41 @@ def main() -> None:
     bwd_stress = rglru_bwd_stress_cases(dev)
     cases["rglru_scan_bwd"] = [
         check_rglru_bwd(dev, *a, **kw) for a, kw in (
-            first_rg[("rglru_scan_bwd", bf16)],
-            first_rg[("rglru_scan_bwd", f32)])] + bwd_stress["rglru_scan_bwd"]
-    a, kw = first_rg[("flash_attention_bwd", bf16)]
-    cases["flash_attention_bwd"] = ([check_flash_bwd(dev, *a, **kw)]
-                                    + flash_bwd_stress_cases(dev))
+            first_rg[("rglru_scan_bwd", bf16, None)],
+            first_rg[("rglru_scan_bwd", f32, None)])] \
+        + bwd_stress["rglru_scan_bwd"]
+    part_done("rglru_scan backward")
+    a, kw = first_rg[("flash_attention_bwd", bf16, 2048)]
+    cases["flash_attention_bwd"] = [{
+        "call": "recurrentgemma-9b train, window 2048",
+        "launches_per_step": train_rg_line[
+            "flash_attention_bwd_per_step_by_window"]["2048"],
+        **check_flash_bwd(dev, *a, **kw)}]
+    # then the dense and MLA train paths' first call of each window
+    # (Gemma2-9B's windowed and global: G 2, d 256, softcap 50; DeepSeek's
+    # MLA: G 1, q / k 192, v 128), each with its launches a step
+    for cell in TRAIN_LM_CELLS:
+        _, first_lm, lm_line = train_lm[cell.phase]
+        for key in [k for k in first_lm if k[0] == "flash_attention_bwd"]:
+            a, kw = first_lm.pop(key)
+            prof = lm_line["profiled"]
+            n_calls = max(prof["launches"]["flash_attention_bwd"], 1)
+            cases["flash_attention_bwd"].append({
+                "call": f"{cell.arch} train, window {key[2]}",
+                "launches_per_step": lm_line[
+                    "flash_attention_bwd_per_step_by_window"][str(key[2])],
+                **check_flash_bwd(dev, *a, **kw),
+                # the phase's profiled step, over all its windows' calls
+                "phase_device_ms_per_call_by_kernel": {
+                    k: v * 1e3 / n_calls
+                    for k, v in prof["backward_by_name"].items()
+                    if FLASH_BWD_KERNELS.search(k)}})
+            del a, kw
+            torch.cuda.empty_cache()
+    n_path = len(cases["flash_attention_bwd"])
+    part_done("flash_attention backward at the paths' calls")
+    cases["flash_attention_bwd"] += flash_bwd_stress_cases(dev)
+    part_done("flash_attention backward's stress cases")
     rg_prof = train_rg_line["profiled"]
     n_calls = max(rg_prof["launches"]["flash_attention_bwd"], 1)
     cases["flash_attention_bwd"][0]["device_ms_per_call_by_kernel"] = {
@@ -3967,7 +4354,7 @@ def main() -> None:
             case["device_ms_per_call_by_kernel"].values())
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     cases["rglru_scan_bwd"][0]["kernel_attrs"] = rg_ops.bwd_attrs(dev)
-    del first_rg, a, kw
+    del first_rg
     torch.cuda.empty_cache()
     train_vap = check_vap_accum(dev, (TRAIN_REPLICAS, 50_280, 768),
                                 torch.float32, 55)
@@ -4033,6 +4420,8 @@ def main() -> None:
                           k: v[name] for k, v in replay_launches.items()},
                       "train_launches": train_launches[name],
                       "train_rg_launches": train_rg_launches[name],
+                      **{f"{phase}_launches": lm[0][name]
+                         for phase, lm in train_lm.items()},
                       **{k: main_case[k] for k in keys}})
     # vap_accum on the train path: one launch a leaf a step
     table[2]["train"] = {"launches": train_launches["vap_accum"],
@@ -4085,12 +4474,24 @@ def main() -> None:
          **{k: case[k] for k in keys}}
         for case in cases["flash_attention"] if "stress" in case.get(
             "call", "")]
+    # the flash backward's train calls, path by path: each first call of
+    # each window, with its launches a step in its phase
+    fab_row = next(r for r in table if r["name"] == "flash_attention_bwd")
+    fab_row["calls"] = [
+        {"call": case["call"],
+         "launches_per_step": case["launches_per_step"],
+         **{k: case[k] for k in keys + ("tflops", "bound_share")}}
+        for case in cases["flash_attention_bwd"][:n_path]]
     # the bare recurrence's backward entry, off the path
     rgb_row = next(r for r in table if r["name"] == "rglru_scan_bwd")
     rgb_row["entries"] = [
         {"entry": "linear_recurrence_bwd_f32", "launches": train_rg_line[
             "rglru_scan_by_entry"]["linear_recurrence_bwd_f32"],
          **{k: bwd_stress["linear_recurrence_bwd"][-1][k] for k in keys}}]
+    part_done("the rest and the table")
+    walls["kernels"] = time.perf_counter() - t_kernels
+    emit({"phase": "walls", "s": walls, "kernels_s": kernels_s,
+          "smoke_s": time.perf_counter() - T_START})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

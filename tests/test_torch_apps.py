@@ -68,6 +68,43 @@ def test_theory_formulas_match_reference(F, L, v, P, T):
         ref_theory.regret_is_sublinear(regret)
 
 
+def test_strong_vap_example_runs_as_the_reference():
+    """The example the JAX package's ``test_simulator_invariants_random``
+    can draw: P 6, vap(0.625, strong=True), delay 0.75, seed 4.  Both
+    packages' simulators run it to the same bits and hold the value and
+    strong gates (unsynchronized and half-synchronized mass within
+    max(u, v)), and on both its divergence passes the strong-VAP bound
+    2 max(u, v) that both packages state.  Whether the bound or the gate
+    is at fault waits for the paper's section 2.2 (ROADMAP Queue 3); until
+    then the port keeps the reference's bound and this pins the example."""
+    P, vthr, delay, seed = 6, 0.625, 0.75, 4
+
+    def fn(w, clock, view, r):
+        x = view.get("x")
+        return {"x": -0.1 * (x - w) + r.normal(0, 0.1, 2)}
+
+    runs = []
+    for ps_cls, net_cls, pols in ((AsyncPS, NetworkModel, policies),
+                                  (RefAsyncPS, RefNetworkModel,
+                                   ref_policies)):
+        ps = ps_cls(P, pols.vap(vthr, strong=True), {"x": np.zeros(2)},
+                    network=net_cls(base_delay=delay, jitter=delay / 2,
+                                    seed=seed), seed=seed)
+        runs.append((ps, ps.run(fn, 8, divergence_every=1.0)))
+    (ps, st), (ref_ps, ref_st) = runs
+    for name in ("max_divergence", "max_update_mag", "max_unsynced_mag",
+                 "max_halfsync_mag", "n_updates", "n_messages", "sim_time"):
+        assert getattr(st, name) == getattr(ref_st, name), name
+    np.testing.assert_array_equal(ps.views[0]["x"], ref_ps.views[0]["x"])
+    assert st.violations == [] and ps.n_proc == P
+    u = st.max_update_mag
+    assert st.max_unsynced_mag <= max(u, vthr) + 1e-9
+    assert st.max_halfsync_mag <= max(u, vthr) + 1e-9
+    bound = theory.strong_vap_divergence_bound(u, vthr)
+    assert bound == ref_theory.strong_vap_divergence_bound(u, vthr)
+    assert st.max_divergence > bound + 1e-9
+
+
 def test_theorem1_regret_bound_holds_on_the_ports_simulator():
     """The reference's test_theorem1_regret_bound, on the port's simulator:
     SGD under VAP stays under the paper's bound and converges."""

@@ -37,6 +37,7 @@ from typing import List, Optional
 import numpy as np
 import pytest
 
+import chaos
 from chaos import (assert_paper_bounds, det_fn, expected_final,
                    random_membership_script, random_schedule,
                    run_sim_schedule, x0, zipf_fn)
@@ -223,6 +224,9 @@ def chaos_run(seed: int, pol, n_clocks: int, transport: str = "queue",
                                  max_shards=max_shards, transport=transport,
                                  membership_plan=plan, wal_dir=wal_dir,
                                  trace=CHAOS_TRACE, device="cpu"))
+    # the post-mortem hook in conftest.py dumps this runtime's trace and
+    # metrics to test-artifacts/<test>/ when a chaos test fails
+    chaos.LAST_RT = rt
     gate = _OpGate(rt, 1 if autoscale else len(plan.events), n_clocks)
     reader = wedger = gw = asc = None
     rt.start(gate.wrap(det_fn(seed) if fn is None else fn), n_clocks,
@@ -386,6 +390,37 @@ def test_runtime_membership_chaos_smoke(polname, pol, tmp_path):
                                    wal_dir=wal_dir)
     _assert_chaos_outcome(rt, stats, plan, seed, n_clocks)
     assert_wal_recovery(rt, seed, n_clocks, wal_dir)
+
+
+def test_a_failed_port_chaos_test_ships_its_post_mortem(tmp_path,
+                                                        monkeypatch):
+    """``conftest.py``'s hook writes the trace and metrics of
+    ``chaos.LAST_RT`` to ``test-artifacts/<test>/`` when a chaos test
+    fails.  The port's ``chaos_run`` registers its runtime there, so a red
+    run of this file ships its own post-mortem: here the hook is driven as
+    pytest drives it, for a failed report, after the membership smoke's
+    ssp3 run."""
+    import json
+    from types import SimpleNamespace
+
+    import conftest
+
+    rt, stats, plan, _ = chaos_run(21, policies.ssp(3), 30, n_events=3)
+    assert chaos.LAST_RT is rt and rt.trace_on
+    monkeypatch.setattr(conftest, "ARTIFACTS", str(tmp_path))
+    rep = SimpleNamespace(when="call", failed=True, sections=[])
+    item = SimpleNamespace(keywords={"chaos": True},
+                           nodeid="tests/test_torch_chaos.py::t[ssp3-tcp]")
+    gen = conftest.pytest_runtest_makereport(item, None)
+    next(gen)
+    with pytest.raises(StopIteration):
+        gen.send(SimpleNamespace(get_result=lambda: rep))
+    out = tmp_path / "t_ssp3-tcp_"
+    assert not (out / "artifact-error.txt").exists()
+    metrics = json.loads((out / "metrics.json").read_text())
+    assert metrics["membership"]["n_ops"] == len(plan.events)
+    assert json.loads((out / "trace.json").read_text())
+    assert rep.sections and "chaos artifacts" in rep.sections[0][0]
 
 
 def test_wal_off_cross_epoch_duplicate_dropped(monkeypatch):

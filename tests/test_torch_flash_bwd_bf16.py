@@ -17,8 +17,11 @@ against the plain version (``ref.attention_bwd``, the float32 formulas)
 under the kernel's own gate (``tests/test_torch_train_cuda.py``'s
 ``_assert_close(flash=True)``: 1e-2 max|plain| + 2^-6 |plain|) over
 ``test_torch_flash_grad.CASES`` and ``test_torch_train_cuda.FLASH_CASES`` in
-bfloat16 and RecurrentGemma-9B's layout at reduced lengths (MQA, G 16, d
-256, a window below sq, sq not a multiple of the tile), and once against
+bfloat16 (among them Gemma2-9B's train layout at 600 positions: 8 kv
+heads, G 2, d 256, softcap 50, windowed below one tile and global; and
+DeepSeek-V2-Lite's MLA: G 1, q / k 192, v 128, causal) and
+RecurrentGemma-9B's layout at reduced lengths (MQA, G 16, d 256, a window
+below sq, sq not a multiple of the tile), and once against
 the JAX package's ``jax.vjp`` of ``attention_core``, on inputs made with
 numpy from a seed.
 """
@@ -180,9 +183,15 @@ def test_bf16_emulation_against_the_reference_vjp():
 
 def test_slices_split_the_train_call():
     """At RecurrentGemma-9B's train call the G heads split in four (128
-    key tiles, 512 dK / dV blocks: as many partials as dq's bytes hold);
+    key tiles, 512 dK / dV blocks: as many partials as dq's bytes hold); at
+    Gemma2-9B's and DeepSeek's, where the kv heads give the grid its
+    blocks, one slice;
     where dq's bytes cannot hold two slices' partials, or four blocks an
     SM are reached already, one slice."""
     assert _slices(2, 4096, 4096, 1, 16, 256, 256) == 4
+    # Gemma2-9B's train calls (G 2) and DeepSeek's MLA (G 1): 2,048 blocks
+    # cover the SMs, one slice
+    assert _slices(2, 8192, 8192, 8, 2, 256, 256) == 1
+    assert _slices(2, 4096, 4096, 16, 1, 192, 128) == 1
     assert _slices(1, 256, 256, 1, 1, 64, 64) == 1
     assert _slices(1, 64, 8192, 4, 4, 64, 64) == 1

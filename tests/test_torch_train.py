@@ -24,8 +24,10 @@ gradients, updated parameters and optimizer and sync state rtol 2e-4, atol
 
 The ``cuda`` test runs two steps of each architecture on the card against
 the JAX package on the CPU.  Besides the recurrent-mixer models, ``ARCHS``
-holds reduced OLMoE (MoE, qk-norm) and Gemma2 (alternating windows,
-softcaps, post-norms, tied head).
+holds reduced OLMoE (MoE, qk-norm), Gemma2 (alternating windows, softcaps,
+post-norms, tied head) and DeepSeek-V2-Lite (MLA and MoE together: a dense
+first layer outside the stacked units, then a routed layer with shared
+experts).
 """
 import dataclasses
 import os
@@ -66,7 +68,8 @@ from repro_torch.models.common import ShardCtx, tree_leaves, tree_map, \
 from repro_torch.models.common import instantiate_tree as \
     port_instantiate_tree
 
-ARCHS = ["mamba2-130m", "recurrentgemma-9b", "olmoe-1b-7b", "gemma2-9b"]
+ARCHS = ["mamba2-130m", "recurrentgemma-9b", "olmoe-1b-7b", "gemma2-9b",
+         "deepseek-v2-lite-16b"]
 LOSS_RTOL = 1e-5
 RTOL, ATOL = 2e-4, 2e-5
 # the reference's jitted grad_norm (XLA's float32 vdot on the CPU) was
@@ -485,12 +488,15 @@ def test_train_step_on_the_card_matches_reference(arch, cuda):
         _close_metrics(rm, pm)
         _close_states(rs, ps)
     n_leaves = len(tree_leaves(ps.params))
-    # each layer of its kind a step, its forward twice (remat)
-    kinds = [m.kind for m in M.layer_metas(pc)]
+    # each layer of its kind a step; a stacked unit's forward twice (remat),
+    # a layer outside the units (DeepSeek's dense first layer) once
+    prefix, unit, n_units, tail = M.group_layers(pc, M.layer_metas(pc))
     mixer = {"mamba2-130m": {"rec": ssd_ops},
              "recurrentgemma-9b": {"rec": rg_ops, "attn": flash_ops}}.get(
                  arch, {"attn": flash_ops})
     for kind, m in mixer.items():
-        assert m.bwd_launches == 2 * kinds.count(kind), kind
-        assert m.launches == 2 * 2 * kinds.count(kind), kind
+        once = sum(x.kind == kind for x in prefix + tail)
+        in_units = n_units * sum(x.kind == kind for x in unit)
+        assert m.bwd_launches == 2 * (once + in_units), kind
+        assert m.launches == 2 * (once + 2 * in_units), kind
     assert vap_ops.launches == 2 * n_leaves

@@ -21,7 +21,9 @@ version's bits, with the forward's saved states and without; the forward
 writes those states, bitwise ``ref.rglru_states``, only where a graph is
 wanted; its kernels report no spill; the flash forward's
 log-sum-exp against ``ref.attention_lse``; reduced RecurrentGemma trains on
-the card through ``make_train_step`` and ``launch.train.run``.
+the card through ``make_train_step`` and ``launch.train.run``; so do reduced
+Gemma2-9B and DeepSeek-V2-Lite in bfloat16, with the flash backward's
+launches by window and the MoE's routes the same in remat's recomputation.
 """
 import dataclasses
 
@@ -292,14 +294,19 @@ def test_linear_recurrence_backward_kernel_matches_plain(shape, cuda):
 
 
 # (b, sq, skv, kvh, G, dh, dv, window, cap, empty key slots): chip_smoke's
-# stress cases
+# stress cases, the last three the layouts of Gemma2-9B's train calls (8 kv
+# heads, G 2, d 256, softcap 50; windowed below one tile, and global) and
+# DeepSeek-V2-Lite's MLA (16 kv heads, G 1, q / k 192, v 128, causal)
 FLASH_CASES = [(2, 256, 256, 2, 2, 64, 64, None, None, False),
                (1, 300, 300, 1, 4, 32, 32, None, 50.0, False),
                (1, 128, 128, 4, 1, 192, 128, None, None, False),
                (1, 512, 512, 1, 1, 128, 128, 64, 30.0, False),
                (1, 200, 333, 1, 4, 128, 64, 100, None, True),
                (2, 130, 130, 1, 2, 48, 80, 50, None, False),
-               (1, 700, 700, 1, 16, 256, 256, 40, None, False)]
+               (1, 700, 700, 1, 16, 256, 256, 40, None, False),
+               (1, 600, 600, 8, 2, 256, 256, 40, 50.0, False),
+               (1, 600, 600, 8, 2, 256, 256, None, 50.0, False),
+               (2, 512, 512, 16, 1, 192, 128, None, None, False)]
 
 
 def _flash_inputs(case, dtype, dev, seed=0):
@@ -417,3 +424,54 @@ def test_recurrentgemma_trains_on_the_card(cuda):
     _, hist = train.run(dataclasses.replace(tcfg, steps=2), cfg,
                         batch_size=2, seq_len=16, device=cuda, log=str)
     assert all(np.isfinite(h["loss"]) for h in hist)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "deepseek-v2-lite-16b"])
+def test_dense_and_mla_models_train_on_the_card(arch, cuda):
+    """Reduced Gemma2 (local / global windows, softcaps) and DeepSeek (MLA,
+    a dense first layer, MoE) in bfloat16 through ``make_train_step`` on
+    the card, with chip_smoke.py's own accounting: the flash kernels launch
+    as ``M.group_layers`` implies (``train_launches_per_step``: a unit's
+    forward twice under remat, a layer outside the units once, the backward
+    once a layer, by window), remat's recomputation routes every MoE pair
+    as the forward did (``moe_routes``, ``moe_step_routes``), and the loss
+    falls."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+
+    cfg = reduced_config(arch)                      # bfloat16 compute
+    tcfg = TrainConfig(arch=arch, lr=1e-3, warmup_steps=0)
+    state = init_train_state(cfg, tcfg, tp=1, dp=1, seed=0, device=cuda)
+    step = steps.make_train_step(cfg, tcfg)
+    gen = np.random.default_rng(0)
+    ids = gen.integers(1, cfg.vocab_size, (2, 65)).astype(np.int32)
+    batch = {"ids": ids[:, :-1], "labels": ids[:, 1:]}
+    want, by_window = chip_smoke.train_launches_per_step(cfg, tcfg.remat)
+    windows = []
+    orig_bwd = flash_ops.flash_attention_bwd
+
+    def bwd(*args):
+        windows.append(args[8])
+        return orig_bwd(*args)
+
+    f0, b0 = flash_ops.launches, flash_ops.bwd_launches
+    losses = []
+    flash_ops.flash_attention_bwd = bwd
+    try:
+        for _ in range(3):
+            with chip_smoke.moe_routes() as routes:
+                state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            if cfg.moe is not None:
+                assert chip_smoke.moe_step_routes(routes, cfg,
+                                                  tcfg.remat)[1] == 0
+    finally:
+        flash_ops.flash_attention_bwd = orig_bwd
+    assert flash_ops.launches - f0 == 3 * want["flash_attention"]
+    assert flash_ops.bwd_launches - b0 == 3 * want["flash_attention_bwd"]
+    assert {w: windows.count(w) for w in set(windows)} == {
+        w: 3 * n for w, n in by_window.items()}
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
