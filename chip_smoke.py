@@ -163,13 +163,18 @@ Phases, each printed as one JSON line:
            send order).
   serve    LLM serving, as examples/serve_demo.py drives the JAX package:
            make_prefill_step then make_serve_step (greedy decode against
-           ring KV caches), for RecurrentGemma-9B, Mamba2-130M, Gemma2-9B
-           and DeepSeek-V2-Lite-16B at their full published widths and
-           depths in bfloat16, random weights drawn on the card from
-           --seed (default 0); 16,384 prompt tokens a model (drawn from
-           the seed; 4 requests of 4,096, Gemma2-9B 2 of 8,192 so that its
-           4,096-token window masks on the local layers), 16 generated
-           tokens each.  Per model: its
+           ring KV caches), for RecurrentGemma-9B, Mamba2-130M, Gemma2-9B,
+           DeepSeek-V2-Lite-16B, Pixtral-12B and MusicGen-medium at their
+           full published widths and depths in bfloat16, random weights
+           drawn on the card from --seed (default 0); 16,384 prompt tokens
+           a model (drawn from the seed; 4 requests of 4,096, Gemma2-9B 2
+           of 8,192 so that its 4,096-token window masks on the local
+           layers), 16 generated tokens each.  The two frontend models'
+           stubbed frontends get their embeddings drawn from the seed
+           after the prompts (Pixtral 256 patch embeddings a request,
+           MusicGen 64 conditioning frames), which replace the prompt's
+           first positions in the prefill and in the parity check's full
+           forward.  Per model: its
            parameters (the tree without head_f32, the float32 master copy
            of the head, whose bytes are reported apart; param_bytes is the
            tree's memory, head included), prefill ms,
@@ -191,11 +196,12 @@ Phases, each printed as one JSON line:
            rglru_scan 26, its entries' counts summing to it, flash_attention
            12; Mamba2: ssd_scan 24; Gemma2: flash_attention 42, 21 with
            the window and 21 without; DeepSeek: flash_attention 27, MLA's
-           q / k 192 and v 128 wide) and none in decode; finite logits;
+           q / k 192 and v 128 wide; Pixtral: 40, G 4 at d 128; MusicGen:
+           48, G 1 at d 64) and none in decode; finite logits;
            every token in the vocabulary; the first decode step's logits
            against a full forward over prompt + that token, within 5e-2 of
            the logits' largest magnitude (bfloat16: the two paths round at
-           other places through 26-42 layers).  DeepSeek's check runs at
+           other places through 24-48 layers).  DeepSeek's check runs at
            capacity factor 8 (tests/test_decode_parity.py's), every MoE
            layer's routes compared between the two paths: a request whose
            chosen or kept experts differ in some layer (a near-tied route
@@ -283,6 +289,24 @@ Phases, each printed as one JSON line:
            against the CPU.  The MoE's gradient is not bit-repeatable run
            to run (its gathers' backward adds atomically); the line says
            so.
+  train_pixtral
+           Pixtral-12B the same way: full width (d 5,120, GQA 32 / 8 heads
+           x 128, d_ff 14,336, vocab 131,072, untied head), 3 of its 40
+           layers, 2 x 4,096 tokens a step, each step's 2 x 256 patch
+           embeddings drawn as launch/train.py's run draws them, Adam at
+           lr 1e-4 under cvap(2, 1.8e-4) (at the other cells' 1e-3 its
+           loss rose over the 4 steps; the bound scales with lr).  Checks
+           as train_rg's: a step's flash_attention 6 and its backward 3;
+           two reduced float32 Pixtral steps on the card against the CPU.
+  train_musicgen
+           MusicGen-medium at full width and full depth (d 1,536, 24 heads
+           x 64, LayerNorm with a bias, a non-gated GELU MLP of 6,144,
+           vocab 2,048, 48 layers), 4 x 4,096 tokens and 4 x 64
+           conditioning frames a step, Adam at lr 1e-5 under cvap(2,
+           1.8e-5) (its loss rose at 1e-3 to 3e-5).  Checks as
+           train_rg's: a step's flash_attention 96 and its backward 48;
+           two reduced float32 MusicGen steps on the card against the
+           CPU.
   kernels  each CUDA kernel against its plain PyTorch version, at the
            shapes the paths gave it (ps_apply's median call per table, no
            sentinel rows, as the shard sends none; MF's too; replica
@@ -293,7 +317,8 @@ Phases, each printed as one JSON line:
            the float32 tail's first call; for flash_attention each served
            model's first call of each window: RecurrentGemma's, Gemma2's
            windowed and global (softcap 50, G 2, d 256), DeepSeek's MLA (G
-           1, q / k 192, v 128), the plain version over slices of the
+           1, q / k 192, v 128), Pixtral's (G 4, d 128, causal) and
+           MusicGen's (G 1, d 64, causal), the plain version over slices of the
            batch where its float32 logits would pass 5 GB) and at stress
            shapes (tests/test_kernels.py's cases for the LLM kernels, and
            for flash_attention the bfloat16 kernel's edges: every head-dim
@@ -356,7 +381,9 @@ Phases, each printed as one JSON line:
            train call also with its device time a call by kernel from the
            train phase's profiled step, every bfloat16 case with its
            kernels' registers and shared memory);
-           vap_accum also at the train path's largest leaf.  The
+           vap_accum also at the train path's largest leaf, and at
+           train_pixtral's (its 131,072 x 5,120 float32 embedding; drawn,
+           and its plain version run and timed, on the card).  The
            rglru_scan backward at the train_rg path's first call in each
            dtype (2 x 4,096 x 4,096: the unit's bfloat16, the tail's
            float32; from the path's own saved states, with its kernels'
@@ -374,15 +401,18 @@ Phases, each printed as one JSON line:
            dtypes): each against its plain version on the card (rglru:
            dΛ to 1e-4 max|plain| + 1e-3 |plain|, + 2^-6 |plain| for a
            bfloat16 output; flash: the same in float32, 1e-2 max|plain| + 2^-6
-           |plain| in bfloat16; also at the train_gemma2 and
-           train_deepseek paths' first call of each window, the plain
+           |plain| in bfloat16; also at the train_gemma2, train_deepseek,
+           train_pixtral and train_musicgen paths' first call of each
+           window, the plain
            version over slices of the batch and the kv heads, and at their
            layouts at 512-600 positions), run twice and failing where the two
            differ in bits (every backward check does), with the
            library's time where one call computes it (flash: the backward
            of scaled_dot_product_attention with the window as a boolean
            mask) and its bound.  The flash forward's cases also carry its
-           time when it writes the rows' log-sum-exp (ms_with_lse).
+           time as training runs it (ms_with_lse): writing the rows'
+           log-sum-exp and, in bfloat16, the output's rounding residual,
+           which every bfloat16 flash backward takes.
 
 After each phase a line {"phase_wall": name, "s": seconds}; after the
 kernels phase one {"phase": "walls", ...} line with every phase's wall and
@@ -623,7 +653,8 @@ def _nan_aware_equal(got, want) -> bool:
     """Bitwise equal (so -0.0 is not 0.0), except that NaN meets NaN at the
     same places with any payload: CUDA, torch and XLA canonicalise a NaN
     rounded to bfloat16 differently."""
-    got, want = got.cpu(), want.cpu()
+    if got.device != want.device:
+        got, want = got.cpu(), want.cpu()
     if got.dtype != want.dtype or got.shape != want.shape:
         return False
     nan = torch.isnan(want)
@@ -633,17 +664,23 @@ def _nan_aware_equal(got, want) -> bool:
     return torch.equal(got[~nan].view(ints), want[~nan].view(ints))
 
 
-def check_vap_accum(dev, shape, delta_dtype, seed, special=False, offset=0):
+def check_vap_accum(dev, shape, delta_dtype, seed, special=False, offset=0,
+                    plain_on_card=False):
     """``special`` plants NaN, +-inf and a -0.0 that stays -0.0 in delta;
     ``offset`` 1 starts every tensor one element into its buffer, so no
-    pointer is 16-byte aligned and the kernel takes its scalar path."""
+    pointer is 16-byte aligned and the kernel takes its scalar path.
+    ``plain_on_card``: the inputs drawn and the plain version run and timed
+    on the card (its element-wise float32 adds and max give the host's
+    bits), for a leaf whose host copies would take minutes; else both on
+    the host."""
     from repro_torch.kernels.vap_accum import ops, ref
 
     n = int(np.prod(shape))
-    g = torch.Generator().manual_seed(seed)
-    p_c = torch.randn(shape, generator=g)
-    d_c = (torch.randn(shape, generator=g) * 4).to(delta_dtype)
-    u_c = torch.randn(shape, generator=g)
+    where = dev if plain_on_card else torch.device("cpu")
+    g = torch.Generator(device=where).manual_seed(seed)
+    p_c = torch.randn(shape, generator=g, device=where)
+    d_c = (torch.randn(shape, generator=g, device=where) * 4).to(delta_dtype)
+    u_c = torch.randn(shape, generator=g, device=where)
     if special:
         flat_d, flat_u = d_c.view(-1), u_c.view(-1)
         for i, v in zip((n // 7, n // 5, n // 3, n // 2),
@@ -664,8 +701,8 @@ def check_vap_accum(dev, shape, delta_dtype, seed, special=False, offset=0):
     torch.cuda.synchronize()
     same = (_nan_aware_equal(p_d, want_p) and _nan_aware_equal(d_d, want_d)
             and _nan_aware_equal(m.reshape(1), want_m.reshape(1)))
-    err = max(float((p_d.cpu() - want_p).abs().nan_to_num().max()),
-              float((d_d.cpu().float() - want_d.float()).abs()
+    err = max(float((p_d.to(where) - want_p).abs().nan_to_num().max()),
+              float((d_d.to(where).float() - want_d.float()).abs()
                     .nan_to_num().max())) if n else 0.0
     if not same:
         raise AssertionError(f"vap_accum {shape} delta {delta_dtype}: kernel "
@@ -673,9 +710,13 @@ def check_vap_accum(dev, shape, delta_dtype, seed, special=False, offset=0):
 
     big = n > 10_000_000
     ms = cuda_ms(lambda: ops.vap_accum_(p_d, d_d, u_d))
-    plain_p, plain_d = p_c.clone(), d_c.clone()
-    plain_ms = host_ms(lambda: ref.vap_accum_(plain_p, plain_d, u_c),
-                       reps=5 if big else REPS, warmup=1 if big else 2)
+    del want_m
+    if plain_on_card:          # want_p / want_d are done with: time on them
+        plain_ms = cuda_ms(lambda: ref.vap_accum_(want_p, want_d, u_c))
+    else:
+        plain_p, plain_d = p_c.clone(), d_c.clone()
+        plain_ms = host_ms(lambda: ref.vap_accum_(plain_p, plain_d, u_c),
+                           reps=5 if big else REPS, warmup=1 if big else 2)
 
     def library():            # three eager torch ops on the card
         p_d.add_(u_d)
@@ -690,6 +731,7 @@ def check_vap_accum(dev, shape, delta_dtype, seed, special=False, offset=0):
                      + (" NaN/inf/-0.0" if special else "")
                      + (" misaligned" if offset else ""),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "plain_on": "card" if plain_on_card else "host",
             "library_ms": library_ms, "library": "p.add_(u); d.add_(u); "
             "d.abs().amax() (three torch ops)", "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -792,6 +834,8 @@ def check_flash(dev, q, k, v, q_pos, k_pos, window=None, cap=None,
     skv, dv = k.shape[1], v.shape[-1]
     big = q.numel() > 10_000_000
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, q_pos, k_pos, **kw))
+    # the forward as training runs it: log-sum-exp and, in bfloat16, the
+    # output's rounding residual
     ms_with_lse = cuda_ms(lambda: ops.flash_attention(
         q, k, v, q_pos, k_pos, **kw, return_lse=True))
     plain_ms = cuda_ms(lambda: flash_plain(q, k, v, q_pos, k_pos, **kw),
@@ -828,7 +872,8 @@ def check_flash(dev, q, k, v, q_pos, k_pos, window=None, cap=None,
             "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
             "max_abs_err": err, "mean_abs_plain": mean_abs_want,
             "tolerance": tol[q.dtype],
-            "ms": ms, "ms_with_lse": ms_with_lse, "plain_ms": plain_ms,
+            "ms": ms, "ms_with_lse": ms_with_lse,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "library": library,
             "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
 
@@ -2562,7 +2607,7 @@ def run_apps_phase(dev):
 # layers) so that the models and the kernels' checks fit the script's time
 # limit.
 SERVE_MODELS = ("recurrentgemma-9b", "mamba2-130m", "gemma2-9b",
-                "deepseek-v2-lite-16b")
+                "deepseek-v2-lite-16b", "pixtral-12b", "musicgen-medium")
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4_096, 16
 # (requests, prompt tokens) where a model's differ from the default
 SERVE_SHAPE = {"gemma2-9b": (2, 8_192)}
@@ -2572,15 +2617,19 @@ SERVE_LAUNCHES = {"recurrentgemma-9b": {"rglru_scan": 26,
                                         "flash_attention": 12},
                   "mamba2-130m": {"ssd_scan": 24},
                   "gemma2-9b": {"flash_attention": 42},
-                  "deepseek-v2-lite-16b": {"flash_attention": 27}}
+                  "deepseek-v2-lite-16b": {"flash_attention": 27},
+                  "pixtral-12b": {"flash_attention": 40},
+                  "musicgen-medium": {"flash_attention": 48}}
 # flash_attention's prefill launches by window: Gemma2's 21 local (4,096)
 # and 21 global layers
 SERVE_FLASH_BY_WINDOW = {"recurrentgemma-9b": {2048: 12},
                          "gemma2-9b": {4096: 21, None: 21},
-                         "deepseek-v2-lite-16b": {None: 27}}
+                         "deepseek-v2-lite-16b": {None: 27},
+                         "pixtral-12b": {None: 40},
+                         "musicgen-medium": {None: 48}}
 # bfloat16 decode against the full forward: the two paths round at other
 # places (cuBLAS picks other kernels for 1 and 4,097 rows; decode reads the
-# bfloat16 KV cache), and a few bfloat16 ulps carry through 38 / 24 layers
+# bfloat16 KV cache), and a few bfloat16 ulps carry through 24-48 layers
 PARITY_TOL = 5e-2
 # the decode-parity check's MoE capacity factor (test_decode_parity.py's),
 # so that the full forward's 16,388 tokens drop no pair where decode's four
@@ -2597,6 +2646,17 @@ def serve_reduced(name):
     return {"shape": f"{b} requests x {s:,} prompt tokens of the assigned "
                      f"prefill_32k (32 x 32,768)",
             "weights": SERVE_WEIGHTS}
+
+
+def frontend_embeddings(cfg, rng, rows, dev):
+    """A request batch's stubbed frontend embeddings (rows, n_embeds,
+    d_model), normal(0, 0.02) from ``rng`` in the compute dtype on ``dev``,
+    as {"extra_emb": ...}; {} for a model without a frontend."""
+    if cfg.frontend is None:
+        return {}
+    e = rng.normal(0, 0.02, (rows, cfg.frontend.n_embeds, cfg.d_model))
+    return {"extra_emb": torch.from_numpy(e).to(dev, getattr(torch,
+                                                            cfg.dtype))}
 
 
 @contextlib.contextmanager
@@ -2679,10 +2739,12 @@ def route_agreement(dec, full, rows, at):
     return sorted(held), flips, drops
 
 
-def decode_parity(name, cfg, params, prompts, capacity, dev):
+def decode_parity(name, cfg, params, prompts, capacity, dev,
+                  extra_emb=None):
     """The first decode step's logits against a full forward over the
     prompt and that token, within PARITY_TOL of the full forward's largest
-    logit.  Every MoE layer's routes are compared between the two paths
+    logit; a frontend's ``extra_emb`` goes to the prefill and the full
+    forward alike.  Every MoE layer's routes are compared between the two paths
     (:func:`route_agreement`).  Where a request's routes differ in some
     layer (a near-tie flipped by bfloat16 rounding), decode runs again from
     the same caches (it rewrites the one slot it wrote) with the full
@@ -2698,14 +2760,15 @@ def decode_parity(name, cfg, params, prompts, capacity, dev):
     pos = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
     with torch.inference_mode(), moe_routes() as routes:
         logits_p, caches = M.prefill(cfg, ctx, params, prompts,
-                                     capacity=capacity)
+                                     capacity=capacity, extra_emb=extra_emb)
         tok0 = M.sample_greedy(ctx, logits_p)
         routes.clear()
         logits_d, _ = M.decode_step(cfg, ctx, params, tok0[:, None].long(),
                                     pos, caches)
         n_dec = len(routes)
         x, _, _ = M.forward(cfg, ctx, params,
-                            torch.cat([prompts, tok0[:, None].long()], 1))
+                            torch.cat([prompts, tok0[:, None].long()], 1),
+                            extra_emb=extra_emb)
         logits_f = M.logits_of(cfg, params, x[:, prompt])
         del x
         full = routes[n_dec:]
@@ -2740,7 +2803,8 @@ def decode_parity(name, cfg, params, prompts, capacity, dev):
 # the flash kernel's serve calls held against its plain version, by (model,
 # window): the first call of each window in each model's prefill
 FLASH_PATH_CALLS = (("recurrentgemma-9b", 2048), ("gemma2-9b", 4096),
-                    ("gemma2-9b", None), ("deepseek-v2-lite-16b", None))
+                    ("gemma2-9b", None), ("deepseek-v2-lite-16b", None),
+                    ("pixtral-12b", None), ("musicgen-medium", None))
 
 
 def run_serve_phase(dev, seed):
@@ -2780,6 +2844,7 @@ def run_serve_phase(dev, seed):
         rng = np.random.default_rng(seed)
         prompts = torch.from_numpy(rng.integers(
             1, cfg.vocab_size, (batch, prompt))).to(dev)
+        extra = frontend_embeddings(cfg, rng, batch, dev)
 
         def decode(nxt, caches, n_steps):
             toks = [nxt]
@@ -2792,13 +2857,13 @@ def run_serve_phase(dev, seed):
             return torch.stack(toks, 1), caches
 
         # warm-up: cuBLAS handles and every torch kernel once, short prompt
-        nxt, caches = prefill_fn(params, {"ids": prompts[:, :256]})
+        nxt, caches = prefill_fn(params, {"ids": prompts[:, :256], **extra})
         decode(nxt, caches, 1)
         del nxt, caches
 
         with path_run(dev, key=window_key) as run:
             t = time.perf_counter()
-            nxt, caches = prefill_fn(params, {"ids": prompts})
+            nxt, caches = prefill_fn(params, {"ids": prompts, **extra})
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t
             after_prefill = {k: m.launches for k, m in run["mods"].items()}
@@ -2828,7 +2893,7 @@ def run_serve_phase(dev, seed):
         with path_run(dev, keep_first=True, key=window_key) as rep, profile(
                 activities=[ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
-            nxt2, caches = prefill_fn(params, {"ids": prompts})
+            nxt2, caches = prefill_fn(params, {"ids": prompts, **extra})
             decode(nxt2, caches, 4)
             torch.cuda.synchronize()
         prof_wall_s = time.perf_counter() - t
@@ -2854,7 +2919,7 @@ def run_serve_phase(dev, seed):
             # the MoE's drops at the published capacity factor: a prefill and
             # 4 decode steps again with every layer's routes noted
             with moe_routes() as routes:
-                nxt3, caches = prefill_fn(params, {"ids": prompts})
+                nxt3, caches = prefill_fn(params, {"ids": prompts, **extra})
                 n_pre = len(routes)
                 decode(nxt3, caches, 4)
             drops = [int((~r["keep"]).sum()) for r in routes]
@@ -2875,7 +2940,8 @@ def run_serve_phase(dev, seed):
         pcfg = cfg if cfg.moe is None else dataclasses.replace(
             cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=PARITY_CAPACITY_FACTOR))
-        par = decode_parity(name, pcfg, params, prompts, shape.seq_len, dev)
+        par = decode_parity(name, pcfg, params, prompts, shape.seq_len, dev,
+                            extra.get("extra_emb"))
         logits_p, logits_d, logits_f, tok0 = (par.pop(k) for k in (
             "logits_p", "logits_d", "logits_f", "tok0"))
         held, parity, scale = par["held"], par["parity"], par["scale"]
@@ -2895,6 +2961,12 @@ def run_serve_phase(dev, seed):
             "batch": batch, "prompt": prompt,
             "generated": SERVE_GEN, "capacity": shape.seq_len,
             "reduced": serve_reduced(name), "init_s": init_s,
+            **({"frontend": {
+                "kind": cfg.frontend.kind,
+                "n_embeds": cfg.frontend.n_embeds,
+                "embeddings": "stubbed: normal(0, 0.02) from the seed, "
+                              "replacing the first n_embeds positions"}}
+               if cfg.frontend is not None else {}),
             "prefill_ms": prefill_s * 1e3,
             "prefill_tokens_per_s": batch * prompt / prefill_s,
             "decode_ms_per_step": decode_s * 1e3 / n_decode,
@@ -2933,7 +3005,7 @@ def run_serve_phase(dev, seed):
             "tokens_in_vocab": in_vocab,
             "first_token_repeats": same_first,
             "tokens_head": tokens[:2, :8].tolist()}
-        del params, prompts, logits_p, logits_d, logits_f
+        del params, prompts, extra, logits_p, logits_d, logits_f
         emit({"phase": "serve", "model": name, **lines[name]})
         want = SERVE_LAUNCHES[name]
         got = {k: after_prefill[k] for k in KERNELS if after_prefill[k]}
@@ -3157,7 +3229,8 @@ def train_step_card_vs_cpu(dev, seed, arch=TRAIN_ARCH):
                      cpu)
     rng = np.random.default_rng(seed)
     ids = rng.integers(1, cfg.vocab_size, (4, 65)).astype(np.int32)
-    batch = {"ids": ids[:, :-1], "labels": ids[:, 1:]}
+    batch = {"ids": ids[:, :-1], "labels": ids[:, 1:],
+             **frontend_embeddings(cfg, rng, 4, "cpu")}
     step = steps.make_train_step(cfg, tcfg)
 
     def gap(got, want):
@@ -3199,12 +3272,13 @@ def train_step_card_vs_cpu(dev, seed, arch=TRAIN_ARCH):
                          f"{TRAIN_STEP_ATOL}; synced [0, 1] on both"}
 
 
-def _train_steps(state, step_fn, it, n_steps, run, policy, counters=None):
+def _train_steps(state, step_fn, it, n_steps, run, policy, counters=None,
+                 value_bound=TRAIN_VALUE_BOUND):
     """``n_steps`` steps of ``step_fn`` on batches from ``it`` inside the
     path_run ``run``.  Returns (state, {"walls", "waits" (the host's wait
     on the data), "losses", "synced", "triggers" (which of clock and value
     was due: TRAIN_STALENESS, and the step's max|δ| from vap_accum against
-    TRAIN_VALUE_BOUND), "gmax" (that max), "invariant" (the VAP invariant
+    ``value_bound``), "gmax" (that max), "invariant" (the VAP invariant
     after the step), "launches" (with ``counters``, a function returning
     launch counts: each step's)} of lists)."""
     from repro_torch.core.sync import vap_invariant_ok
@@ -3231,7 +3305,7 @@ def _train_steps(state, step_fn, it, n_steps, run, policy, counters=None):
         hist["gmax"].append(step_max)
         hist["triggers"].append(
             (["clock"] if since + 1 >= TRAIN_STALENESS + 1 else [])
-            + (["value"] if step_max > TRAIN_VALUE_BOUND else []))
+            + (["value"] if step_max > value_bound else []))
         hist["invariant"].append(bool(vap_invariant_ok(policy,
                                                        state.sync).all()))
     return state, hist
@@ -3575,10 +3649,11 @@ def rglru_bwd_stress_cases(dev):
 
 
 def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
-                    cap=None):
+                    cap=None, out_lo=None):
     """The flash_attention backward against its plain version on the card
-    (``ref.attention_bwd``: dense float32 formulas), twice, failing where
-    the two differ in bits; both timed (a bfloat16 case with the bfloat16
+    (``ref.attention_bwd``: dense float32 formulas), with the forward's
+    output residual ``out_lo`` in bfloat16, twice, failing where the two
+    differ in bits; both timed (a bfloat16 case with the bfloat16
     kernels' registers and shared memory), and one library call where one
     computes the same
     function: the backward of scaled_dot_product_attention with the window
@@ -3589,7 +3664,7 @@ def check_flash_bwd(dev, q, k, v, q_pos, k_pos, out, lse, dout, window=None,
     from repro_torch.kernels.flash_attention import ops
 
     q, k, v, out, dout = (t.detach() for t in (q, k, v, out, dout))
-    args = (q, k, v, q_pos, k_pos, out, lse, dout, window, cap)
+    args = (q, k, v, q_pos, k_pos, out, lse, dout, window, cap, out_lo)
     got = ops.flash_attention_bwd(*args)
     want = flash_bwd_plain(q, k, v, q_pos, k_pos, window, cap, dout)
     torch.cuda.synchronize()
@@ -3676,8 +3751,8 @@ FLASH_BWD_CASES = ((2, 256, 256, 2, 2, 64, 64, None, None, False),
 
 
 def flash_bwd_stress_cases(dev):
-    """FLASH_BWD_CASES in float32 and bfloat16; the forward (with its
-    log-sum-exp) gives o and lse."""
+    """FLASH_BWD_CASES in float32 and bfloat16; the forward as training runs
+    it gives o, lse and (bfloat16) o's rounding residual."""
     from repro_torch.kernels.flash_attention import ops
 
     g = torch.Generator(device=dev).manual_seed(17)
@@ -3695,11 +3770,11 @@ def flash_bwd_stress_cases(dev):
             k_pos = torch.arange(skv, dtype=torch.int32, device=dev)
             if empty:
                 k_pos[skv // 2:] = 2**30
-            o, lse = ops.flash_attention(q, k, v, q_pos, k_pos, window, cap,
-                                         return_lse=True)
+            o, lse, lo = ops.flash_attention(q, k, v, q_pos, k_pos, window,
+                                             cap, return_lse=True)
             out.append(check_flash_bwd(dev, q, k, v, q_pos, k_pos, o, lse,
                                        randn(b, sq, kvh, G, dv, dtype=dtype),
-                                       window, cap))
+                                       window, cap, lo))
     return out
 
 
@@ -3802,8 +3877,8 @@ def flash_bwd_plain(q, k, v, q_pos, k_pos, window, cap, dout):
 class TrainCell:
     """One full-width, reduced-depth training cell on the card: one
     replica, ``rows`` SyntheticLM sequences of ``seq`` tokens a step,
-    ``steps`` Adam steps under cvap(TRAIN_STALENESS, TRAIN_VALUE_BOUND),
-    remat on."""
+    ``steps`` Adam steps at learning rate ``lr`` under
+    cvap(TRAIN_STALENESS, :meth:`value_bound`), remat on."""
     phase: str
     arch: str
     layers: int
@@ -3812,6 +3887,13 @@ class TrainCell:
     steps: int
     reduced: dict
     notes: dict = dataclasses.field(default_factory=dict)
+    lr: float = TRAIN_LR
+
+    def value_bound(self) -> float:
+        """TRAIN_VALUE_BOUND scaled with the learning rate: Adam moves an
+        entry by about lr a step, so the bound stays between two steps'
+        growth of max|δ| and three's."""
+        return round(TRAIN_VALUE_BOUND * self.lr / TRAIN_LR, 12)
 
 
 # the card's 80 GB, which a training cell's peak must stay under
@@ -3842,7 +3924,56 @@ TRAIN_DEEPSEEK = TrainCell(
                           "fixed: "
                           "the gradient is not bit-repeatable run to run "
                           "(the forward and the routes are)"})
-TRAIN_LM_CELLS = (TRAIN_GEMMA2, TRAIN_DEEPSEEK)
+# Pixtral-12B: 16 bytes a parameter make 34.6 GB at 3 layers (2.16 B
+# parameters), 196 GB at 40.  Reckoned before its first run from
+# train_gemma2's 62.3 GB at 1.71 B: the master, moments, δ, the update
+# buffer and the gradients take 24 bytes a parameter (51.8 GB), the compute
+# cast 4.3 GB, the activations of 2 x 4,096 tokens under remat a few GB
+# (Gemma2's 2 x 8,192 tokens, 256,000-word head and the kept calls took
+# ~18 GB): ~62-66 GB, under the ~75 GB at which it would take 2 layers
+# The frontend cells' learning rates.  At the other cells' 1e-3 both losses
+# rose over the 4 steps on the card (H100 80GB HBM3, 700 W): Pixtral's
+# 12.27, 20.33, 15.01, 19.16, MusicGen's 48-layer stack's 8.18, 14.93,
+# 11.99, 12.99.  So do the reference's and the port's alike on the CPU at
+# MusicGen's full width, where at the reduced width 1e-3 falls
+# (tests/test_torch_frontends.py::test_adam_at_full_width_rises_at_1e3_in_
+# both): Adam's first step moves every weight by its whole lr, the same
+# way across a row's d inputs, so its effect grows with the width.  Each
+# cell takes the largest of 1e-3, 3e-4, 1e-4, 3e-5, 1e-5 and 3e-6 at which
+# its last loss lies below its first; the value bound scales with it.  Over
+# that sweep a 4-step run's last loss is U-shaped in lr: above the choice
+# the steps overshoot (MusicGen at 3e-5 ends at 8.38), below it they move
+# less (3e-6 ends at 6.56, 1e-5 at 5.99)
+TRAIN_PIXTRAL = TrainCell(
+    "train_pixtral", "pixtral-12b", 3, 2, TRAIN_SEQ, 4,
+    {"layers": "3 of 40: the float32 master, Adam's moments and δ take 16 "
+               "bytes a parameter, 34.6 GB at 3 layers, 196 GB at 40; the "
+               "update and the gradients take 8 more (a peak of ~62-66 GB "
+               "reckoned at 3, under the ~75 GB at which it would take 2)",
+     "global_batch": "2 sequences of train_4k's 256, each with 256 patch "
+                     "embeddings",
+     "steps": "4",
+     "replicas": "1 (the reference's mesh=None step)"},
+    {"lr_note": "lr 1e-4, not the other cells' 1e-3: the largest of 1e-3, "
+                "3e-4, 1e-4, 3e-5 at which its last loss lay below its "
+                "first (at 1e-3 it rose, 12.27 to 19.16, as the "
+                "reference's run rises at full width: tests/"
+                "test_torch_frontends.py)"},
+    lr=1e-4)
+# MusicGen-medium at full depth: 1.37 B parameters, 21.8 GB at 16 bytes
+TRAIN_MUSICGEN = TrainCell(
+    "train_musicgen", "musicgen-medium", 48, 4, TRAIN_SEQ, 4,
+    {"global_batch": "4 sequences of train_4k's 256, each with 64 "
+                     "conditioning frames",
+     "steps": "4"},
+    {"lr_note": "lr 1e-5, not the other cells' 1e-3: the largest of 1e-3, "
+                "3e-4, 1e-4, 3e-5, 1e-5, 3e-6 at which its last loss lay "
+                "below its first (at 1e-3 it rose, 8.18 to 12.99, as the "
+                "reference's run rises at full width: tests/"
+                "test_torch_frontends.py; at 3e-5 to 8.38, and below 8.18 "
+                "only from its sixth step)"},
+    lr=1e-5)
+TRAIN_LM_CELLS = (TRAIN_GEMMA2, TRAIN_DEEPSEEK, TRAIN_PIXTRAL, TRAIN_MUSICGEN)
 
 
 def run_train_lm_phase(dev, seed, smi, cell: TrainCell):
@@ -3859,6 +3990,7 @@ def run_train_lm_phase(dev, seed, smi, cell: TrainCell):
     from repro_torch.kernels.rglru_scan import ref as rg_ref
     from repro_torch.launch import steps
     from repro_torch.launch.state import init_train_state
+    from repro_torch.launch.train import frontend_draws
     from repro_torch.models import model as M
     from repro_torch.models import moe
     from repro_torch.models.common import tree_leaves
@@ -3866,11 +3998,11 @@ def run_train_lm_phase(dev, seed, smi, cell: TrainCell):
     name = cell.phase
     cfg = dataclasses.replace(get_config(cell.arch),
                               n_layers=cell.layers)  # bfloat16 compute
-    tcfg = TrainConfig(arch=cell.arch, optimizer="adam", lr=TRAIN_LR,
+    tcfg = TrainConfig(arch=cell.arch, optimizer="adam", lr=cell.lr,
                        warmup_steps=TRAIN_WARMUP, seed=seed,
                        consistency=ConsistencySpec(
                            model="cvap", staleness=TRAIN_STALENESS,
-                           value_bound=TRAIN_VALUE_BOUND))
+                           value_bound=cell.value_bound()))
     policy = policies.from_spec(tcfg.consistency)
     want_step, want_bwd_by_window = train_launches_per_step(cfg, tcfg.remat)
     gc.collect()
@@ -3892,6 +4024,11 @@ def run_train_lm_phase(dev, seed, smi, cell: TrainCell):
                                  + list(state.sync.delta.values()))}
     step_fn = steps.make_train_step(cfg, tcfg)
     it = batches(SyntheticLM(cfg.vocab_size, seed=seed), cell.rows, cell.seq)
+    draw = frontend_draws(cfg, seed, cell.rows)
+    if draw is not None:
+        # a frontend's embeddings, drawn each step as launch.train.run
+        # draws them (on the host, inside the step's wall)
+        it = ({**b, "extra_emb": draw()} for b in it)
 
     # the plain versions are counted, and must not run on this path
     plain_fns = {(rg_ref, "rglru"), (rg_ref, "rglru_bwd"),
@@ -3918,7 +4055,7 @@ def run_train_lm_phase(dev, seed, smi, cell: TrainCell):
         with path_run(dev, keep_first=True, key=window_key) as run, \
                 moe_routes() as routed:
             state, hist = _train_steps(state, step_fn, it, cell.steps, run,
-                                       policy, counters)
+                                       policy, counters, cell.value_bound())
         walls, losses, synced, invariant = (hist[k] for k in (
             "walls", "losses", "synced", "invariant"))
         per_step = [{k: c[k] for k in want_step} for c in hist["launches"]]
@@ -4011,14 +4148,19 @@ def run_train_lm_phase(dev, seed, smi, cell: TrainCell):
             "d_model": cfg.d_model,
             **({"rglru_width": cfg.recurrent.width} if rglru else {}),
             "heads": f"{cfg.n_heads} x {cfg.d_head}, {cfg.n_kv_heads} kv",
+            **({"frontend": {"kind": cfg.frontend.kind,
+                             "n_embeds": cfg.frontend.n_embeds}}
+               if cfg.frontend is not None else {}),
+            "norm": cfg.norm_kind, "mlp": f"{cfg.act}, "
+            + ("gated" if cfg.gated_mlp else "not gated"),
             "window": cfg.window, "d_ff": cfg.d_ff,
             "vocab": cfg.vocab_size, "dtype": cfg.dtype,
             "master_dtype": "float32", "state_bytes": state_bytes,
             "replicas": 1, "rows": cell.rows, "seq_len": cell.seq,
             "steps": cell.steps, "reduced": cell.reduced, **cell.notes,
-            "optimizer": "adam", "lr": TRAIN_LR,
+            "optimizer": "adam", "lr": cell.lr,
             "warmup_steps": TRAIN_WARMUP, "remat": tcfg.remat,
-            "policy": f"cvap({TRAIN_STALENESS}, {TRAIN_VALUE_BOUND})",
+            "policy": f"cvap({TRAIN_STALENESS}, {cell.value_bound()})",
             "init_s": init_s, "step_wall_s": walls,
             "step_wall_median_s": step_med,
             "tokens_per_s": tokens / step_med,
@@ -4309,9 +4451,10 @@ def main() -> None:
         "launches_per_step": train_rg_line[
             "flash_attention_bwd_per_step_by_window"]["2048"],
         **check_flash_bwd(dev, *a, **kw)}]
-    # then the dense and MLA train paths' first call of each window
-    # (Gemma2-9B's windowed and global: G 2, d 256, softcap 50; DeepSeek's
-    # MLA: G 1, q / k 192, v 128), each with its launches a step
+    # then the dense, MLA and frontend train paths' first call of each
+    # window (Gemma2-9B's windowed and global: G 2, d 256, softcap 50;
+    # DeepSeek's MLA: G 1, q / k 192, v 128; Pixtral's G 4 at d 128;
+    # MusicGen's G 1 at d 64), each with its launches a step
     for cell in TRAIN_LM_CELLS:
         _, first_lm, lm_line = train_lm[cell.phase]
         for key in [k for k in first_lm if k[0] == "flash_attention_bwd"]:
@@ -4358,6 +4501,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_vap = check_vap_accum(dev, (TRAIN_REPLICAS, 50_280, 768),
                                 torch.float32, 55)
+    # and at the largest leaf of any path: train_pixtral's embedding (its
+    # untied head is the same size), one replica
+    pixtral_vap = check_vap_accum(dev, (1, 131_072, 5_120), torch.float32, 56,
+                                  plain_on_card=True)
+    part_done("vap_accum at the train paths' largest leaves")
     linear_recurrence = stress["linear_recurrence"]
     emit({"phase": "kernels",
           "tolerance": "bitwise (0) for ps_apply, topk_mag, vap_accum, "
@@ -4426,6 +4574,9 @@ def main() -> None:
     # vap_accum on the train path: one launch a leaf a step
     table[2]["train"] = {"launches": train_launches["vap_accum"],
                          **{k: train_vap[k] for k in keys}}
+    table[2]["train_pixtral"] = {
+        "launches": train_lm[TRAIN_PIXTRAL.phase][0]["vap_accum"],
+        **{k: pixtral_vap[k] for k in keys + ("plain_on",)}}
     # ps_apply's second call site: replica ingest, at its median call on
     # the full word_topic buffer; launches: the replicas' own in the
     # replicas phase's main run
@@ -4455,7 +4606,7 @@ def main() -> None:
     rg_row["train_rg_launches_by_entry"] = train_rg_line[
         "rglru_scan_by_entry"]
     # the bfloat16 forward at the serve call, also writing its log-sum-exp
-    # (the train path's forward)
+    # and residual (the train path's forward)
     fa_row = next(r for r in table if r["name"] == "flash_attention")
     fa_row["ms_with_lse"] = cases["flash_attention"][0]["ms_with_lse"]
     # its serve calls model by model (launches: each window's in the

@@ -1,12 +1,15 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
-The port serves eight of the JAX package's ten architectures: the two with
+The port serves the JAX package's ten architectures: the two with
 recurrent mixers (``recurrentgemma-9b``, ``mamba2-130m``), the dense ones
 with full and alternating attention (``olmo-1b``, ``qwen3-8b``,
-``gemma2-2b``, ``gemma2-9b``) and the MoE ones, DeepSeek's with multi-head
-latent attention (``olmoe-1b-7b``, ``deepseek-v2-lite-16b``).  The two with
-modality frontends (``pixtral-12b``, ``musicgen-medium``) raise
-``KeyError``: they are ROADMAP Queue 1 item 6.4.  ``reduced_config`` is the
+``gemma2-2b``, ``gemma2-9b``), the MoE ones, DeepSeek's with multi-head
+latent attention (``olmoe-1b-7b``, ``deepseek-v2-lite-16b``), and the two
+with stubbed modality frontends (``pixtral-12b``, ``musicgen-medium``),
+whose precomputed embeddings replace the first positions of the token
+stream.  The reference's two mesh variants (``pixtral-12b-cg``,
+``mamba2-130m-sp``) change only how a mesh gathers and shards, so they
+come with the mesh (ROADMAP Queue 1 item 7).  ``reduced_config`` is the
 JAX package's smoke variant of an architecture, rule for rule, so the two
 packages' CPU parity tests build the same model.
 """
@@ -14,31 +17,33 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.configs.base import FrontendConfig, MLAConfig, ModelConfig
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2_2b
 from repro_torch.configs.gemma2_9b import CONFIG as _gemma2_9b
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
+from repro_torch.configs.musicgen_medium import CONFIG as _musicgen
 from repro_torch.configs.olmo_1b import CONFIG as _olmo
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
+from repro_torch.configs.pixtral_12b import CONFIG as _pixtral
 from repro_torch.configs.qwen3_8b import CONFIG as _qwen3
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma
 
-ARCHS = {c.name: c for c in [_olmoe, _olmo, _qwen3, _gemma2_9b, _gemma2_2b,
-                             _recurrentgemma, _deepseek, _mamba2]}
+ARCHS = {c.name: c for c in [_olmoe, _olmo, _pixtral, _qwen3, _gemma2_9b,
+                             _gemma2_2b, _recurrentgemma, _musicgen,
+                             _deepseek, _mamba2]}
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP Queue 1 "
-                       f"item 6.4); the port has: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
 
 
 def reduced_config(name: str) -> ModelConfig:
     """A tiny same-family variant for CPU tests (at most 2 layers or one
-    pattern period, d_model 128, 4 experts), the same as the JAX package's
-    ``reduced_config``."""
+    pattern period, d_model 128, 4 experts, 8 frontend embeddings), the
+    same as the JAX package's ``reduced_config``."""
     cfg = get_config(name)
     kw = dict(
         name=cfg.name + "-smoke",
@@ -75,4 +80,7 @@ def reduced_config(name: str) -> ModelConfig:
             kw["recurrent"] = dataclasses.replace(
                 cfg.recurrent, width=128, head_dim=32, d_state=16,
                 chunk_size=16)
+    if cfg.frontend is not None:
+        kw["frontend"] = FrontendConfig(kind=cfg.frontend.kind, n_embeds=8,
+                                        embed_dim=128)
     return dataclasses.replace(cfg, **kw)

@@ -29,7 +29,12 @@
 // Two entries, chosen by dtype; neither falls back to the other.  Both first
 // take D = rowsum(do o) in a pre-pass (flash_bwd_dot_kernel, one warp a
 // row), use no float atomics and sum in a fixed order, so the bits repeat
-// run to run.
+// run to run.  In bfloat16, o is the forward's bf16 output plus the rounding
+// residual the forward wrote beside it for training (out_lo, required): from
+// the bf16 output alone, D's 2^-9 relative error enters dS = P (dP - D)
+// where dP and D nearly cancel, and at MusicGen-medium's train call (4 x
+// 4,096, 24 heads of d 64, causal, the last of 48 layers) the gradients
+// missed the 1e-2 max|plain| gate (1.19e-2 on an H100 80GB HBM3 at 700 W).
 //
 // bfloat16 (flash_attention_bwd_bf16): every product on wgmma, bf16 in and
 // float32 accumulated, in three or four more launches.  Run as the float32
@@ -253,9 +258,9 @@ __device__ __forceinline__ void scores(const Tiles& s, int ldk, int ldv,
 // D = rowsum(do o) for every (batch, query, head) row, one warp a row
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                     float* __restrict__ dsum, int64_t rows, int64_t sq,
-                     int64_t heads, int dv) {
+flash_bwd_dot_kernel(const T* __restrict__ out, const T* __restrict__ out_lo,
+                     const T* __restrict__ dout, float* __restrict__ dsum,
+                     int64_t rows, int64_t sq, int64_t heads, int dv) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
                       threadIdx.x / 32;
   if (row >= rows) return;
@@ -263,7 +268,13 @@ flash_bwd_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   const T* o = out + row * dv;
   const T* d = dout + row * dv;
   float acc = 0.0f;
-  for (int c = lane; c < dv; c += 32) acc += to_f(o[c]) * to_f(d[c]);
+  if (out_lo != nullptr) {  // bfloat16: o + its residual, float32's o
+    const T* lo = out_lo + row * dv;
+    for (int c = lane; c < dv; c += 32)
+      acc += (to_f(o[c]) + to_f(lo[c])) * to_f(d[c]);
+  } else {
+    for (int c = lane; c < dv; c += 32) acc += to_f(o[c]) * to_f(d[c]);
+  }
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
   // row = (bi sq + qi) heads + hh  ->  dsum[(bi heads + hh) sq + qi]
@@ -508,17 +519,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// D = rowsum(do o) into dsum
+// D = rowsum(do o) into dsum (o + out_lo in bfloat16, null in float32)
 template <typename T>
-cudaError_t launch_dot(const void* out, const void* dout, void* dsum,
-                       int64_t b, int64_t sq, int64_t heads, int64_t dvd,
-                       cudaStream_t st) {
+cudaError_t launch_dot(const void* out, const void* out_lo, const void* dout,
+                       void* dsum, int64_t b, int64_t sq, int64_t heads,
+                       int64_t dvd, cudaStream_t st) {
   const int64_t rows = b * sq * heads;
   flash_bwd_dot_kernel<T><<<static_cast<unsigned>(
                                 (rows + kThreads / 32 - 1) / (kThreads / 32)),
                             kThreads, 0, st>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout),
-      static_cast<float*>(dsum), rows, sq, heads, static_cast<int>(dvd));
+      static_cast<const T*>(out), static_cast<const T*>(out_lo),
+      static_cast<const T*>(dout), static_cast<float*>(dsum), rows, sq, heads,
+      static_cast<int>(dvd));
   return cudaGetLastError();
 }
 
@@ -532,7 +544,7 @@ int launch(int device, const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = launch_dot<T>(out, dout, dsum, b, sq, kvh * G, dvd, st);
+  err = launch_dot<T>(out, nullptr, dout, dsum, b, sq, kvh * G, dvd, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int idh = static_cast<int>(dh), idv = static_cast<int>(dvd);
@@ -1331,10 +1343,10 @@ int kv_slices(int sms, int64_t tiles, int64_t b, int64_t sq, int64_t skv,
 template <int D>
 int launch(int device, const void* q, const void* k, const void* v,
            const void* q_pos, const void* k_pos, const void* out,
-           const void* lse, const void* dout, void* dq, void* dk, void* dv,
-           void* dsum, int64_t b, int64_t sq, int64_t skv, int64_t kvh,
-           int64_t G, int64_t dh, int64_t dvd, int64_t window, double cap,
-           double scale, void* stream) {
+           const void* out_lo, const void* lse, const void* dout, void* dq,
+           void* dk, void* dv, void* dsum, int64_t b, int64_t sq, int64_t skv,
+           int64_t kvh, int64_t G, int64_t dh, int64_t dvd, int64_t window,
+           double cap, double scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1356,7 +1368,7 @@ int launch(int device, const void* q, const void* k, const void* v,
     res = tensor_map_bf16(encode, &tdo2, dout, dvd, hq, sq, b, kQRows);
   if (res != CUDA_SUCCESS) return -static_cast<int>(res);
 
-  err = launch_dot<bf16>(out, dout, dsum, b, sq, hq, dvd, st);
+  err = launch_dot<bf16>(out, out_lo, dout, dsum, b, sq, hq, dvd, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   int sms = 0;
@@ -1425,15 +1437,19 @@ int launch(int device, const void* q, const void* k, const void* v,
 // The caller guarantees b * sq * skv * kvh * G > 0, dh and dv at most 256,
 // b * kvh * G < 65,536; window < 0 means none, cap <= 0 means none.  dsum:
 // float32 scratch of b * kvh * G * sq.  bfloat16: dh and dv multiples of 16,
-// sq and skv < 2^31, q, k, v and dout 16-byte aligned (TMA).  Returns the
-// launches' cudaError_t, or minus libcuda's CUresult where a TMA tensor map
-// could not be encoded.
+// sq and skv < 2^31, q, k, v and dout 16-byte aligned (TMA).  out_lo: in
+// bfloat16 the forward's rounding residual of out, which D = rowsum(dout
+// (out + out_lo)) adds back, required; the float32 entry takes null.
+// Returns the launches' cudaError_t, or minus libcuda's CUresult where a TMA
+// tensor map could not be encoded.
 extern "C" int flash_attention_bwd_f32(
     int device, const void* q, const void* k, const void* v,
-    const void* q_pos, const void* k_pos, const void* out, const void* lse,
-    const void* dout, void* dq, void* dk, void* dv, void* dsum, int64_t b,
-    int64_t sq, int64_t skv, int64_t kvh, int64_t G, int64_t dh, int64_t dvd,
-    int64_t window, double cap, double scale, void* stream) {
+    const void* q_pos, const void* k_pos, const void* out,
+    const void* out_lo, const void* lse, const void* dout, void* dq, void* dk,
+    void* dv, void* dsum, int64_t b, int64_t sq, int64_t skv, int64_t kvh,
+    int64_t G, int64_t dh, int64_t dvd, int64_t window, double cap,
+    double scale, void* stream) {
+  if (out_lo != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch<float>(device, q, k, v, q_pos, k_pos, out, lse, dout, dq, dk,
                        dv, dsum, b, sq, skv, kvh, G, dh, dvd, window, cap,
                        scale, stream);
@@ -1441,15 +1457,18 @@ extern "C" int flash_attention_bwd_f32(
 
 extern "C" int flash_attention_bwd_bf16(
     int device, const void* q, const void* k, const void* v,
-    const void* q_pos, const void* k_pos, const void* out, const void* lse,
-    const void* dout, void* dq, void* dk, void* dv, void* dsum, int64_t b,
-    int64_t sq, int64_t skv, int64_t kvh, int64_t G, int64_t dh, int64_t dvd,
-    int64_t window, double cap, double scale, void* stream) {
+    const void* q_pos, const void* k_pos, const void* out,
+    const void* out_lo, const void* lse, const void* dout, void* dq, void* dk,
+    void* dv, void* dsum, int64_t b, int64_t sq, int64_t skv, int64_t kvh,
+    int64_t G, int64_t dh, int64_t dvd, int64_t window, double cap,
+    double scale, void* stream) {
+  if (out_lo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t d = dh > dvd ? dh : dvd;
   auto* const run = d <= 64 ? tc::launch<64> : d <= 128 ? tc::launch<128>
                                                         : tc::launch<256>;
-  return run(device, q, k, v, q_pos, k_pos, out, lse, dout, dq, dk, dv, dsum,
-             b, sq, skv, kvh, G, dh, dvd, window, cap, scale, stream);
+  return run(device, q, k, v, q_pos, k_pos, out, out_lo, lse, dout, dq, dk,
+             dv, dsum, b, sq, skv, kvh, G, dh, dvd, window, cap, scale,
+             stream);
 }
 
 // The bfloat16 backward's kernels at d 256 (RecurrentGemma-9B's tier): D,

@@ -515,7 +515,8 @@ template <int D>
 __device__ __forceinline__ void consume(
     uint32_t base, const int* kpos_s, const int* flag_s,
     const int* __restrict__ q_pos, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int q0, int sq, int dv, int64_t o_row,
+    __nv_bfloat16* __restrict__ out_lo, float* __restrict__ lse, int q0,
+    int sq, int dv, int64_t o_row,
     int64_t o_head, int64_t lse_head, int64_t window, float cap,
     float scale) {
   using S = Smem<D>;
@@ -661,10 +662,21 @@ __device__ __forceinline__ void consume(
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = n * kBox + 8 * j + 2 * t4;
-        if (c < dv)
-          *reinterpret_cast<uint32_t*>(orow + c) =
-              pack_bf16(o[n][4 * j + 2 * h] * inv,
-                        o[n][4 * j + 2 * h + 1] * inv);
+        if (c < dv) {
+          const float v0 = o[n][4 * j + 2 * h] * inv;
+          const float v1 = o[n][4 * j + 2 * h + 1] * inv;
+          const uint32_t hi = pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(orow + c) = hi;
+          // where asked for (training), what the bf16 output dropped:
+          // bf16(v - bf16(v)), from which the backward's D = rowsum(dO O)
+          // takes the float32 output's precision
+          if (out_lo != nullptr) {
+            const float2 h2 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&hi));
+            *reinterpret_cast<uint32_t*>(out_lo + qi * o_row + o_head + c) =
+                pack_bf16(v0 - h2.x, v1 - h2.y);
+          }
+        }
       }
   }
 }
@@ -677,6 +689,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const int* __restrict__ q_pos,
                    const int* __restrict__ k_pos,
                    __nv_bfloat16* __restrict__ out,
+                   __nv_bfloat16* __restrict__ out_lo,
                    float* __restrict__ lse, int sq, int skv, int kvh, int G,
                    int dv, int64_t window, float cap, float scale) {
   using S = Smem<D>;
@@ -712,7 +725,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  skv, qhead, qhead / G, bi, window);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    consume<D>(base, kpos_s, flag_s, q_pos, out, lse, q0, sq, dv,
+    consume<D>(base, kpos_s, flag_s, q_pos, out, out_lo, lse, q0, sq, dv,
                static_cast<int64_t>(kvh) * G * dv,
                (static_cast<int64_t>(bi) * sq * kvh * G + qhead) * dv,
                (static_cast<int64_t>(bi) * kvh * G + qhead) * sq, window, cap,
@@ -722,10 +735,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int D>
 int launch(int device, const void* q, const void* k, const void* v,
-           const void* q_pos, const void* k_pos, void* out, void* lse,
-           int64_t b, int64_t sq, int64_t skv, int64_t kvh, int64_t G,
-           int64_t dh, int64_t dv, int64_t window, double cap, double scale,
-           void* stream) {
+           const void* q_pos, const void* k_pos, void* out, void* out_lo,
+           void* lse, int64_t b, int64_t sq, int64_t skv, int64_t kvh,
+           int64_t G, int64_t dh, int64_t dv, int64_t window, double cap,
+           double scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const EncodeTiled encode = encode_tiled();
@@ -749,7 +762,8 @@ int launch(int device, const void* q, const void* k, const void* v,
                           static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<const int*>(q_pos),
       static_cast<const int*>(k_pos), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), static_cast<int>(sq), static_cast<int>(skv),
+      static_cast<__nv_bfloat16*>(out_lo), static_cast<float*>(lse),
+      static_cast<int>(sq), static_cast<int>(skv),
       static_cast<int>(kvh),
       static_cast<int>(G), static_cast<int>(dv), window,
       static_cast<float>(cap), static_cast<float>(scale));
@@ -765,30 +779,36 @@ int launch(int device, const void* q, const void* k, const void* v,
 // dv <= 256.  bfloat16: dh and dv multiples of 16 and <= 256, sq and skv
 // < 2^31, 16-byte aligned pointers.  lse: null, or float32 (b, kvh, G, sq)
 // for the rows' log-sum-exp of the scaled, capped, masked logits (+inf on a
-// row with no key; the backward recomputes P from it).  Returns the launch's
+// row with no key; the backward recomputes P from it).  out_lo: in bfloat16,
+// given exactly where lse is (training), a second output of out's shape
+// that takes each element's rounding residual, bf16(o - bf16(o)), for the
+// backward's D; the float32 entry takes null.  Returns the launch's
 // cudaError_t, or minus libcuda's CUresult where a TMA tensor map could not
 // be encoded.
 extern "C" int flash_attention_f32(int device, const void* q, const void* k,
                                    const void* v, const void* q_pos,
-                                   const void* k_pos, void* out, void* lse,
-                                   int64_t b, int64_t sq, int64_t skv,
-                                   int64_t kvh, int64_t G, int64_t dh,
-                                   int64_t dv, int64_t window, double cap,
-                                   double scale, void* stream) {
+                                   const void* k_pos, void* out, void* out_lo,
+                                   void* lse, int64_t b, int64_t sq,
+                                   int64_t skv, int64_t kvh, int64_t G,
+                                   int64_t dh, int64_t dv, int64_t window,
+                                   double cap, double scale, void* stream) {
+  if (out_lo != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch<float>(device, q, k, v, q_pos, k_pos, out, lse, b, sq, skv,
                        kvh, G, dh, dv, window, cap, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(int device, const void* q, const void* k,
                                     const void* v, const void* q_pos,
-                                    const void* k_pos, void* out, void* lse,
-                                    int64_t b, int64_t sq, int64_t skv,
-                                    int64_t kvh, int64_t G, int64_t dh,
-                                    int64_t dv, int64_t window, double cap,
-                                    double scale, void* stream) {
+                                    const void* k_pos, void* out, void* out_lo,
+                                    void* lse, int64_t b, int64_t sq,
+                                    int64_t skv, int64_t kvh, int64_t G,
+                                    int64_t dh, int64_t dv, int64_t window,
+                                    double cap, double scale, void* stream) {
+  if ((out_lo == nullptr) != (lse == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t d = dh > dv ? dh : dv;
   auto* const run = d <= 64 ? tc::launch<64> : d <= 128 ? tc::launch<128>
                                                         : tc::launch<256>;
-  return run(device, q, k, v, q_pos, k_pos, out, lse, b, sq, skv, kvh, G, dh,
-             dv, window, cap, scale, stream);
+  return run(device, q, k, v, q_pos, k_pos, out, out_lo, lse, b, sq, skv, kvh,
+             G, dh, dv, window, cap, scale, stream);
 }

@@ -10,10 +10,12 @@ with ``ValueError`` on either device; decode, whose positions differ per
 request, keeps the plain version (``ref.attention``).
 
 On the card, where q, k or v requires grad under grad mode, it is a
-``torch.autograd.Function``: its forward also writes the rows' log-sum-exp,
-and its backward is :func:`flash_attention_bwd`, the kernels of
-``backward.cu``; otherwise the forward launches alone with no log-sum-exp
-(serving).  On the CPU it is the plain version, which autograd
+``torch.autograd.Function``: its forward is ``return_lse``'s, which also
+writes the rows' log-sum-exp and, in bfloat16, the output's rounding
+residual (from which the backward's D = rowsum(dO O) takes the float32
+output's precision), and its backward is :func:`flash_attention_bwd`, the
+kernels of ``backward.cu``; otherwise the forward launches alone with
+neither (serving).  On the CPU it is the plain version, which autograd
 differentiates as it is; the ``Function`` runs there too when called
 directly, its backward then the plain ``ref.attention_bwd``."""
 from __future__ import annotations
@@ -43,9 +45,9 @@ BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
 _TAIL = [ctypes.c_int64] * 8 + [ctypes.c_double, ctypes.c_double,
                                 ctypes.c_void_p]
 _ARGS = {**dict.fromkeys(_ENTRY.values(),
-                         [ctypes.c_int] + [ctypes.c_void_p] * 7 + _TAIL),
+                         [ctypes.c_int] + [ctypes.c_void_p] * 8 + _TAIL),
          **dict.fromkeys(BWD_ENTRY.values(),
-                         [ctypes.c_int] + [ctypes.c_void_p] * 12 + _TAIL),
+                         [ctypes.c_int] + [ctypes.c_void_p] * 13 + _TAIL),
          "flash_attention_bwd_bf16_attrs": [ctypes.c_int, ctypes.c_void_p]}
 # the bfloat16 backward's kernels, in launch order (the sum only where the
 # G heads are split into slices), at d 256
@@ -106,9 +108,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (b, sq, kvh, G, dh), k (b, skv, kvh, dh), v (b, skv, kvh, dv), q_pos
     (sq,) and k_pos (skv,) integers (``2**30`` marks an empty key slot).
-    Returns (b, sq, kvh, G, dv) in q's dtype; with ``return_lse`` also the
-    rows' log-sum-exp (b, kvh, G, sq) float32 (+inf on a row with no key),
-    and then no autograd graph.  On the card q, k, v are all bfloat16 (the
+    Returns (b, sq, kvh, G, dv) in q's dtype; with ``return_lse`` the
+    saved state :func:`flash_attention_bwd` takes, (out, lse, out_lo), and
+    then no autograd graph: lse the rows' log-sum-exp (b, kvh, G, sq)
+    float32 (+inf on a row with no key), out_lo in bfloat16 each output
+    element's rounding residual bf16(o - bf16(o)) of the float32 output o
+    (None in float32).  On the card q, k, v are all bfloat16 (the
     tensor-core kernel: dh and dv multiples of 16, at most 256, P rounded to
     bfloat16 for the second product) or all float32 (the float32-pipe
     kernel: dh a multiple of 4, dh and dv at most 256), with float32
@@ -116,29 +121,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _check(q, k, v, q_pos, k_pos)
     if q.device.type == "cpu":
-        out = ref.attention(q, k, v, q_pos, k_pos, window=window, cap=cap)
-        if return_lse:
-            return out, ref.attention_lse(q, k, q_pos, k_pos, window, cap)
-        return out
+        if not return_lse:
+            return ref.attention(q, k, v, q_pos, k_pos, window=window,
+                                 cap=cap)
+        o = ref.attention(q.float(), k.float(), v.float(), q_pos, k_pos,
+                          window=window, cap=cap)
+        out = o.to(q.dtype)
+        lo = (o - out.float()).to(q.dtype) if q.dtype == torch.bfloat16 \
+            else None
+        return out, ref.attention_lse(q, k, q_pos, k_pos, window, cap), lo
     if not return_lse and torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, q_pos, k_pos, window, cap)
-    out, lse = _forward(q, k, v, q_pos, k_pos, window, cap, return_lse)
-    return (out, lse) if return_lse else out
+    out, lse, lo = _forward(q, k, v, q_pos, k_pos, window, cap, return_lse)
+    return (out, lse, lo) if return_lse else out
 
 
 def _forward(q, k, v, q_pos, k_pos, window, cap, with_lse):
-    """The forward launch on the card (inputs checked): (out, lse or
-    None)."""
+    """The forward launch on the card (inputs checked): (out, lse, out_lo)
+    with ``with_lse`` (out_lo None in float32), else (out, None, None)."""
     b, sq, kvh, G, dh = q.shape
     skv, dv = k.shape[1], v.shape[-1]
     out = torch.empty((b, sq, kvh, G, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, kvh, G, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    lo = (torch.empty_like(out)
+          if with_lse and q.dtype == torch.bfloat16 else None)
     if out.numel() == 0 or skv == 0:   # no key at all: every row gives 0
         if lse is not None:
             lse.fill_(math.inf)
-        return out.zero_(), lse
+        if lo is not None:
+            lo.zero_()
+        return out.zero_(), lse, lo
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the bfloat16 kernel reads q, k, v "
@@ -148,6 +162,7 @@ def _forward(q, k, v, q_pos, k_pos, window, cap, with_lse):
     err = _entry(_ENTRY[q.dtype])(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
+        None if lo is None else lo.data_ptr(),
         None if lse is None else lse.data_ptr(), b, sq, skv, kvh, G, dh, dv,
         -1 if window is None else int(window),
         0.0 if cap is None else float(cap), 1.0 / math.sqrt(dh),
@@ -160,27 +175,28 @@ def _forward(q, k, v, q_pos, k_pos, window, cap, with_lse):
     global launches
     with _COUNT_LOCK:
         launches += 1
-    return out, lse
+    return out, lse, lo
 
 
 class _FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` with its gradient,
     :func:`flash_attention_bwd`: the kernels on the card (the forward writes
-    the rows' log-sum-exp for it), the plain versions on the CPU."""
+    the rows' log-sum-exp for it, and in bfloat16 the output's rounding
+    residual), the plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, window, cap):
         ctx.window, ctx.cap = window, cap
-        out, lse = flash_attention(q, k, v, q_pos, k_pos, window, cap,
-                                   return_lse=True)
-        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        out, lse, lo = flash_attention(q, k, v, q_pos, k_pos, window, cap,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse, lo)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        q, k, v, q_pos, k_pos, out, lse, lo = ctx.saved_tensors
         return (*flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, dout,
-                                     ctx.window, ctx.cap),
+                                     ctx.window, ctx.cap, lo),
                 None, None, None, None)
 
 
@@ -188,13 +204,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: torch.Tensor, k_pos: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, window: Optional[int] = None,
-                        cap: Optional[float] = None):
+                        cap: Optional[float] = None,
+                        out_lo: Optional[torch.Tensor] = None):
     """The vector-Jacobian product of :func:`flash_attention`: given the
-    forward's ``out`` and ``lse`` (``return_lse=True``) and the cotangent
-    ``dout`` (b, sq, kvh, G, dv), returns (dq, dk, dv) in q's dtype.  On the
-    card one call of ``flash_attention_bwd_bf16`` / ``_f32``, with
-    :func:`flash_attention`'s limits and dout and out in q's dtype: D =
-    rowsum(dout out), then dk and dv, then dq.  bfloat16 runs every product
+    forward's ``out``, ``lse`` and ``out_lo`` (``return_lse=True``) and the
+    cotangent ``dout`` (b, sq, kvh, G, dv), returns (dq, dk, dv) in q's
+    dtype.  ``out_lo``, out's rounding residual, is required in bfloat16
+    and refused in float32, on either device: D = rowsum(dout (out +
+    out_lo)) comes from the forward's float32 output, where from the
+    bfloat16 ``out`` alone its 2^-9 relative error enters dS where dP and D
+    nearly cancel.  On the card one call of ``flash_attention_bwd_bf16`` /
+    ``_f32``, with :func:`flash_attention`'s limits and dout and out in q's
+    dtype: D, then dk and dv, then dq.  bfloat16 runs every product
     on the tensor cores (P and dS rounded to bfloat16 as operands, float32
     sums; the G heads may be split into slices whose float32 partial dk and
     dv pass through dq's memory and are summed by a fourth launch; q, k, v
@@ -212,6 +233,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"not match q {tuple(q.shape)}, dv {dv}")
     if len({q.device, out.device, lse.device, dout.device}) != 1:
         raise ValueError("flash_attention_bwd: tensors must share a device")
+    if q.dtype != torch.bfloat16:
+        if out_lo is not None:
+            raise ValueError(f"flash_attention_bwd: out_lo is bfloat16's "
+                             f"alone, not {q.dtype}'s")
+    elif out_lo is None or tuple(out_lo.shape) != shape_o \
+            or out_lo.dtype != torch.bfloat16 or out_lo.device != q.device:
+        got = None if out_lo is None else (
+            f"{tuple(out_lo.shape)} {out_lo.dtype} on {out_lo.device}")
+        raise ValueError(f"flash_attention_bwd: a bfloat16 backward needs "
+                         f"out_lo, the forward's bfloat16 residual of out "
+                         f"{shape_o}; got {got}")
     if q.device.type == "cpu":
         return ref.attention_bwd(q, k, v, q_pos, k_pos, window, cap, dout)
     if out.dtype != q.dtype or dout.dtype != q.dtype \
@@ -234,8 +266,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kp = k_pos.to(torch.int32).contiguous()
     dsum = torch.empty((b, kvh, G, sq), dtype=torch.float32, device=q.device)
     err = _entry(BWD_ENTRY[q.dtype])(
-        q.device.index, *(t.data_ptr() for t in (q, k, v, qp, kp, out, lse,
-                                                  dout, dq, dk, dvv, dsum)),
+        q.device.index, *(t.data_ptr() for t in (q, k, v, qp, kp, out)),
+        None if out_lo is None else out_lo.contiguous().data_ptr(),
+        *(t.data_ptr() for t in (lse, dout, dq, dk, dvv, dsum)),
         b, sq, skv, kvh, G, dh, dv, -1 if window is None else int(window),
         0.0 if cap is None else float(cap), 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)

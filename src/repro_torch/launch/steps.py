@@ -46,12 +46,15 @@ def make_ctx(mesh) -> ShardCtx:
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     mesh=None) -> Callable:
-    """(state, batch{ids, labels (k b, s)}) -> (state, metrics).
+    """(state, batch{ids, labels (k b, s)[, extra_emb (k b, n, d)]}) ->
+    (state, metrics).
 
     ``state`` leads every leaf with a replica dimension k; replica r trains
-    on batch rows [r b, (r + 1) b).  The parameters and δ are updated in
-    place (the reference donates the state), the optimizer's moments are
-    written back into the state's buffers, the other fields are new.
+    on batch rows [r b, (r + 1) b), of ``extra_emb`` too (a frontend's
+    embeddings, which replace the first positions).  The parameters and δ
+    are updated in place (the reference donates the state), the
+    optimizer's moments are written back into the state's buffers, the
+    other fields are new.
     ``metrics``: 0-d float32 tensors ``loss``, ``xent``, ``aux``,
     ``synced``, ``grad_norm``, ``lr``, averaged over the replicas."""
     ctx = make_ctx(mesh)
@@ -65,6 +68,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         k = int(state.step.shape[0])
         ids = torch.as_tensor(batch["ids"]).to(dev, torch.long)
         labels = torch.as_tensor(batch["labels"]).to(dev, torch.long)
+        extra = batch.get("extra_emb")
+        if extra is not None:
+            extra = torch.as_tensor(extra).to(dev)
         if ids.shape[0] % k:
             raise ValueError(f"a batch of {ids.shape[0]} rows does not "
                              f"split over {k} replicas")
@@ -80,7 +86,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             leaves = tree_leaves(p_r)
             sl = slice(r * rows, (r + 1) * rows)
             loss, m = M.lm_loss(cfg, ctx, p_r, ids[sl], labels[sl],
-                                remat=tcfg.remat)
+                                extra_emb=None if extra is None
+                                else extra[sl], remat=tcfg.remat)
             grad_leaves = iter(torch.autograd.grad(loss, leaves))
             grads = tree_map(lambda _: next(grad_leaves), p_r)
             with torch.no_grad():
@@ -134,17 +141,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
 def make_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
                       long_ctx: bool = False) -> Callable:
-    """(params, batch{ids (B, S)}) -> (next_token (B,) int32, caches), the
-    caches sized for ``shape.seq_len`` tokens."""
+    """(params, batch{ids (B, S)[, extra_emb (B, n, d)]}) -> (next_token
+    (B,) int32, caches), the caches sized for ``shape.seq_len`` tokens; a
+    frontend's ``extra_emb`` replaces the prompt's first positions."""
     ctx = make_ctx(mesh)
 
     @torch.inference_mode()
     def prefill_step(params: Dict, batch: Dict):
-        if "extra_emb" in batch:
-            raise NotImplementedError("modality frontends are not ported yet "
-                                      "(ROADMAP Queue 1 item 6.4)")
         logits, caches = M.prefill(cfg, ctx, params, batch["ids"],
-                                   capacity=shape.seq_len, long_ctx=long_ctx)
+                                   capacity=shape.seq_len,
+                                   extra_emb=batch.get("extra_emb"),
+                                   long_ctx=long_ctx)
         return M.sample_greedy(ctx, logits), caches
 
     return prefill_step

@@ -14,12 +14,20 @@ float32 variant, which also runs on the CPU:
 
 ``--replicas k`` stacks k data-parallel replicas on the one card, each on
 its own ``batch / k`` rows of every batch, synced by the consistency
-policy.  Both architectures train on the card: Mamba-2 through the
-``ssd_scan`` kernels and their backward, RecurrentGemma through the
-``rglru_scan`` and ``flash_attention`` kernels and theirs.  The full-width
-RecurrentGemma-9B's float32 master, Adam moments and δ need 16 bytes a
-parameter (137 GB), more than one 80 GB card holds; ``chip_smoke.py``
-trains it at full width and reduced depth.
+policy.  Every architecture trains on the card through the port's kernels
+and their backwards (``ssd_scan``, ``rglru_scan``, ``flash_attention``).
+The frontend architectures (``pixtral-12b``, ``musicgen-medium``) get
+stubbed frontend embeddings drawn each step from the seed, as the
+reference draws them:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch pixtral-12b \\
+        --device cpu --smoke --steps 20
+
+The float32 master, Adam's moments and δ take 16 bytes a parameter, so
+RecurrentGemma-9B needs 137 GB at full depth, more than one 80 GB card
+holds; ``chip_smoke.py`` trains the larger models at full width and
+reduced depth, and MusicGen-medium (1.37 B parameters, 21.8 GB) at full
+depth.
 """
 from __future__ import annotations
 
@@ -27,6 +35,9 @@ import argparse
 import dataclasses
 import json
 import time
+
+import numpy as np
+import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import (ARCHS, ConsistencySpec, TrainConfig,
@@ -56,10 +67,14 @@ def run(tcfg: TrainConfig, cfg, mesh=None, batch_size: int = 8,
     step_fn = steps.make_train_step(cfg, tcfg, mesh)
     source = SyntheticLM(cfg.vocab_size, seed=tcfg.seed)
     it = batches(source, batch_size, seq_len)
+    draw = frontend_draws(cfg, tcfg.seed, batch_size)
     history = []
     t0 = time.time()
     for i in range(tcfg.steps):
-        state, metrics = step_fn(state, next(it))
+        batch = next(it)
+        if draw is not None:
+            batch = {**batch, "extra_emb": draw()}
+        state, metrics = step_fn(state, batch)
         if i % tcfg.log_every == 0 or i == tcfg.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = i
@@ -73,6 +88,20 @@ def run(tcfg: TrainConfig, cfg, mesh=None, batch_size: int = 8,
     if tcfg.checkpoint_dir:
         _checkpoint(tcfg, state, tcfg.steps)
     return state, history
+
+
+def frontend_draws(cfg, seed: int, batch_size: int):
+    """For a config with a modality frontend, a function that draws one
+    batch's stubbed frontend embeddings (batch_size, n_embeds, d_model) in
+    ``cfg.dtype`` on the host, call by call: the reference's draws
+    (``numpy``'s ``default_rng(seed).normal(0, 0.02, ...)``, one a step,
+    cast from float64), bit for bit.  None without a frontend."""
+    if cfg.frontend is None:
+        return None
+    rng = np.random.default_rng(seed)
+    dtype = getattr(torch, cfg.dtype)
+    shape = (batch_size, cfg.frontend.n_embeds, cfg.d_model)
+    return lambda: torch.from_numpy(rng.normal(0, 0.02, shape)).to(dtype)
 
 
 def synced_params(state):

@@ -192,9 +192,9 @@ def stack_defs(defs: PyTree, n: int) -> PyTree:
 
 
 def model_defs(cfg: ModelConfig, tp: int, long_ctx: bool = False) -> Dict:
-    if cfg.frontend is not None:
-        raise NotImplementedError("modality frontends are not ported yet "
-                                  "(ROADMAP Queue 1 item 6.4)")
+    """The parameter tree's defs.  A modality frontend adds none: it is a
+    stub whose embeddings the caller supplies (:func:`forward`'s
+    ``extra_emb``)."""
     metas = layer_metas(cfg, long_ctx)
     prefix, unit, n_units, tail = group_layers(cfg, metas)
     d = cfg.d_model
@@ -342,8 +342,25 @@ def embed_tokens(cfg: ModelConfig, ctx: ShardCtx, params: Dict,
     return e.to(getattr(torch, cfg.dtype))
 
 
+def _frontend_override(cfg: ModelConfig, x: torch.Tensor,
+                       extra_emb: Optional[torch.Tensor],
+                       positions: torch.Tensor) -> torch.Tensor:
+    """Replace the first ``n_embeds`` positions of ``x`` (b, s, d) with the
+    frontend's embeddings ``extra_emb`` (b, n_embeds, d): VLM patches or
+    audio conditioning.  Positions at or past ``n_embeds`` keep the token
+    embedding; the embedding's gradient gets nothing from the replaced
+    ones."""
+    if cfg.frontend is None or extra_emb is None:
+        return x
+    n = cfg.frontend.n_embeds
+    idx = positions.clamp(0, n - 1)                           # (s,)
+    override = extra_emb.index_select(1, idx).to(x.dtype)
+    return torch.where((positions < n)[None, :, None], override, x)
+
+
 def forward(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
-            *, caches: Optional[Dict] = None,
+            *, extra_emb: Optional[torch.Tensor] = None,
+            caches: Optional[Dict] = None,
             pos: Optional[torch.Tensor] = None,
             long_ctx: bool = False, remat: bool = False,
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
@@ -351,11 +368,17 @@ def forward(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
     updated in place; ``aux`` is the sum of the MoE layers' router
     load-balance losses (0-d float32, 0 without MoE).  ``params`` is the tree as loaded
     (:func:`load_params`), or cast for compute inside :func:`lm_loss`.
-    ``remat`` recomputes each unit's body in the backward (training only:
-    not with caches)."""
+    ``extra_emb`` (b, n_embeds, d), a frontend's embeddings, replaces the
+    first positions of a full sequence (``pos`` None), as the reference's
+    does; decode ignores it.  ``remat`` recomputes each unit's body in the
+    backward (training only: not with caches)."""
     metas = layer_metas(cfg, long_ctx)
     prefix, unit, n_units, tail = group_layers(cfg, metas)
     x = embed_tokens(cfg, ctx, params, ids)
+    if pos is None:
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        x = _frontend_override(cfg, x, extra_emb, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run_block(meta, p, x, aux, cache):
@@ -427,8 +450,9 @@ def logits_of(cfg: ModelConfig, params: Dict,
 
 
 def lm_loss(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
-            labels: torch.Tensor, *, remat: bool = True, chunk: int = 256,
-            ) -> Tuple[torch.Tensor, Dict]:
+            labels: torch.Tensor, *,
+            extra_emb: Optional[torch.Tensor] = None, remat: bool = True,
+            chunk: int = 256) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token cross-entropy over the float32 master tree ``params``
     (labels < 0 are masked).  The compute cast (``model.py:272-273`` of the
     reference) is applied here, inside the differentiated function, and the
@@ -437,12 +461,14 @@ def lm_loss(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
     last whole one count nothing, as in the reference), each chunk's float32
     logits made and dropped in turn; ``remat`` also recomputes each chunk's
     logits in the backward.  With MoE the loss adds ``router_aux_coef``
-    times the router's load-balance loss, as the reference's does.  Returns
-    (loss, {"xent", "aux", "tokens"})."""
+    times the router's load-balance loss, as the reference's does.  A
+    frontend's ``extra_emb`` replaces the first positions (:func:`forward`).
+    Returns (loss, {"xent", "aux", "tokens"})."""
     dtype = getattr(torch, cfg.dtype)
     cast = {k: v for k, v in params.items() if k != "head_f32"}
     cast = tree_map(lambda t: compute_cast(t, dtype), cast)
-    x, _, aux = forward(cfg, ctx, cast, ids, remat=remat)
+    x, _, aux = forward(cfg, ctx, cast, ids, extra_emb=extra_emb,
+                        remat=remat)
     w = head_matrix(cfg, params).to(x.dtype)
     b, s, d = x.shape
     n_chunks = max(1, s // chunk)
@@ -483,15 +509,16 @@ def lm_loss(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, ctx: ShardCtx, params: Dict, ids: torch.Tensor,
-            capacity: int, *, long_ctx: bool = False,
-            ) -> Tuple[torch.Tensor, Dict]:
-    """Run the full prompt, fill fresh caches, return last-position
-    logits (b, V) float32 and the caches."""
+            capacity: int, *, extra_emb: Optional[torch.Tensor] = None,
+            long_ctx: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """Run the full prompt (its first positions a frontend's ``extra_emb``
+    where given), fill fresh caches, return last-position logits (b, V)
+    float32 and the caches."""
     b, s = ids.shape
     caches = empty_cache_tree(
         model_cache_defs(cfg, 1, b, capacity, long_ctx), ids.device)
-    x, caches, _ = forward(cfg, ctx, params, ids, caches=caches,
-                           long_ctx=long_ctx)
+    x, caches, _ = forward(cfg, ctx, params, ids, extra_emb=extra_emb,
+                           caches=caches, long_ctx=long_ctx)
     return logits_of(cfg, params, x[:, -1]), caches
 
 

@@ -142,11 +142,12 @@ def test_attention_lse_is_the_rows_log_sum_exp(case):
     q, k, v, q_pos, k_pos, _ = _inputs(case, seed=5)
     window, cap = case[6], case[7]
     qt, kt = _torch(q), _torch(k)
-    out, lse = ops.flash_attention(qt, kt, _torch(v), _torch(q_pos),
-                                   _torch(k_pos), window, cap,
-                                   return_lse=True)
+    out, lse, lo = ops.flash_attention(qt, kt, _torch(v), _torch(q_pos),
+                                       _torch(k_pos), window, cap,
+                                       return_lse=True)
     b, sq, kvh, G = q.shape[:4]
     assert lse.shape == (b, kvh, G, sq) and lse.dtype == torch.float32
+    assert lo is None                       # the residual is bfloat16's
     s = np.einsum("bqkgd,bskd->bkgqs", q, k) / math.sqrt(q.shape[-1])
     if cap is not None:
         s = np.tanh(s / cap) * cap
@@ -169,8 +170,8 @@ def test_attention_lse_is_the_rows_log_sum_exp(case):
 def test_flash_attention_bwd_checks_shapes():
     case = CASES[3]
     q, k, v, q_pos, k_pos, do = (_torch(a) for a in _inputs(case))
-    out, lse = ops.flash_attention(q, k, v, q_pos, k_pos, None, 30.0,
-                                   return_lse=True)
+    out, lse, _ = ops.flash_attention(q, k, v, q_pos, k_pos, None, 30.0,
+                                      return_lse=True)
     with pytest.raises(ValueError):
         ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do[:, 1:])
     with pytest.raises(ValueError):

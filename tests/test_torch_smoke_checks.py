@@ -9,7 +9,11 @@ CPU at reduced size (no JAX: the smoke holds the port against itself).
   backward's recomputation of a unit routes every pair as its forward did,
   and the forward's drops are counted per layer.
 * The launch counts a train step implies (``train_launches_per_step``) at
-  the three training cells' depths.
+  the five training cells' depths, and the launches a prefill makes at
+  each served model's full depth (``SERVE_LAUNCHES``,
+  ``SERVE_FLASH_BY_WINDOW``), from ``M.layer_metas``.
+* The decode parity of a frontend model gives the prefill and the full
+  forward the same embeddings (``frontend_embeddings``).
 * The plain flash backward over slices of the batch and the kv heads
   (``flash_bwd_plain``) is the whole call's.
 """
@@ -141,11 +145,16 @@ def test_remat_recomputes_the_moe_routes_of_the_forward():
     ("TRAIN_GEMMA2", {"flash_attention": 8, "flash_attention_bwd": 4},
      {4096: 2, None: 2}),
     ("TRAIN_DEEPSEEK", {"flash_attention": 5, "flash_attention_bwd": 3},
-     {None: 3})])
+     {None: 3}),
+    ("TRAIN_PIXTRAL", {"flash_attention": 6, "flash_attention_bwd": 3},
+     {None: 3}),
+    ("TRAIN_MUSICGEN", {"flash_attention": 96, "flash_attention_bwd": 48},
+     {None: 48})])
 def test_train_launches_per_step_follow_the_layers(cell, want, by_window):
     """RecurrentGemma at 5 layers (a rec/rec/attn unit, the float32 tail),
     Gemma2 at 4 (two local/global units), DeepSeek at 3 (the dense first
-    layer, run once, then two MoE units, run twice under remat)."""
+    layer, run once, then two MoE units, run twice under remat), Pixtral
+    at 3 and MusicGen at its full 48 (one-layer units, each run twice)."""
     cell = getattr(chip_smoke, cell)
     cfg = dataclasses.replace(get_config(cell.arch), n_layers=cell.layers)
     assert chip_smoke.train_launches_per_step(cfg, True) == (want, by_window)
@@ -157,15 +166,59 @@ def test_train_launches_per_step_follow_the_layers(cell, want, by_window):
                   ("flash_attention_bwd", torch.bfloat16, 2048)}),
     ("TRAIN_GEMMA2", {("flash_attention_bwd", torch.bfloat16, 4096),
                       ("flash_attention_bwd", torch.bfloat16, None)}),
-    ("TRAIN_DEEPSEEK", {("flash_attention_bwd", torch.bfloat16, None)})])
+    ("TRAIN_DEEPSEEK", {("flash_attention_bwd", torch.bfloat16, None)}),
+    ("TRAIN_PIXTRAL", {("flash_attention_bwd", torch.bfloat16, None)}),
+    ("TRAIN_MUSICGEN", {("flash_attention_bwd", torch.bfloat16, None)})])
 def test_train_first_backward_calls_follow_the_layers(cell, want):
     """The backwards' first calls each train cell keeps for the kernels
     phase: RecurrentGemma's RG-LRU in both dtypes and its windowed flash,
-    Gemma2's local and global flash, DeepSeek's MLA flash."""
+    Gemma2's local and global flash, DeepSeek's MLA flash, Pixtral's and
+    MusicGen's causal flash."""
     cell = getattr(chip_smoke, cell)
     cfg = dataclasses.replace(get_config(cell.arch), n_layers=cell.layers)
     counts, by_window = chip_smoke.train_launches_per_step(cfg, True)
     assert chip_smoke.train_first_bwd_keys(cfg, counts, by_window) == want
+
+
+@pytest.mark.parametrize("name", chip_smoke.SERVE_MODELS)
+def test_serve_launches_follow_the_layers(name):
+    """A prefill launches each mixer kernel once a layer of its kind at
+    the model's full depth, flash_attention's by window (Pixtral 40 and
+    MusicGen 48, all without a window)."""
+    import collections
+    metas = M.layer_metas(get_config(name))
+    kernel = {"attn": "flash_attention"}
+    if get_config(name).recurrent is not None:
+        kernel["rec"] = {"rglru": "rglru_scan", "mamba2": "ssd_scan"}[
+            get_config(name).recurrent.kind]
+    want = dict(collections.Counter(kernel[m.kind] for m in metas))
+    assert chip_smoke.SERVE_LAUNCHES[name] == want
+    windows = collections.Counter(m.window for m in metas
+                                  if m.kind == "attn")
+    assert chip_smoke.SERVE_FLASH_BY_WINDOW.get(name, {}) == dict(windows)
+    assert set(chip_smoke.SERVE_LAUNCHES) == set(chip_smoke.SERVE_MODELS)
+
+
+@pytest.mark.parametrize("name", ["pixtral-12b", "musicgen-medium"])
+def test_decode_parity_feeds_the_frontend_embeddings(name):
+    """Reduced, float32: decode after a prefill with the embeddings agrees
+    with the full forward over the same embeddings, and the embeddings
+    reach the logits (without them the prefill's logits differ)."""
+    cfg = dataclasses.replace(reduced_config(name), dtype="float32")
+    params = M.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                            (BATCH, PROMPT)))
+    extra = chip_smoke.frontend_embeddings(cfg, rng, BATCH, "cpu")
+    assert extra["extra_emb"].shape == (BATCH, 8, cfg.d_model)
+    assert chip_smoke.frontend_embeddings(reduced_config("olmo-1b"), rng,
+                                          BATCH, "cpu") == {}
+    par = chip_smoke.decode_parity(name, cfg, params, prompts, PROMPT + 4,
+                                   torch.device("cpu"), extra["extra_emb"])
+    assert par["held"] == [0, 1, 2] and par["parity"] < 1e-4, par["parity"]
+    bare = chip_smoke.decode_parity(name, cfg, params, prompts, PROMPT + 4,
+                                    torch.device("cpu"))
+    assert float((bare["logits_p"] - par["logits_p"]).abs().max()) > 1e-4
 
 
 def test_plain_flash_backward_over_slices_is_the_whole_call(monkeypatch):

@@ -25,9 +25,11 @@ gradients, updated parameters and optimizer and sync state rtol 2e-4, atol
 The ``cuda`` test runs two steps of each architecture on the card against
 the JAX package on the CPU.  Besides the recurrent-mixer models, ``ARCHS``
 holds reduced OLMoE (MoE, qk-norm), Gemma2 (alternating windows, softcaps,
-post-norms, tied head) and DeepSeek-V2-Lite (MLA and MoE together: a dense
+post-norms, tied head), DeepSeek-V2-Lite (MLA and MoE together: a dense
 first layer outside the stacked units, then a routed layer with shared
-experts).
+experts), and the two frontend architectures, Pixtral-12B (GQA, untied
+head) and MusicGen-medium (LayerNorm with a bias, a non-gated GELU MLP),
+whose batches carry seeded frontend embeddings (``extra_emb``).
 """
 import dataclasses
 import os
@@ -69,7 +71,7 @@ from repro_torch.models.common import instantiate_tree as \
     port_instantiate_tree
 
 ARCHS = ["mamba2-130m", "recurrentgemma-9b", "olmoe-1b-7b", "gemma2-9b",
-         "deepseek-v2-lite-16b"]
+         "deepseek-v2-lite-16b", "pixtral-12b", "musicgen-medium"]
 LOSS_RTOL = 1e-5
 RTOL, ATOL = 2e-4, 2e-5
 # the reference's jitted grad_norm (XLA's float32 vdot on the CPU) was
@@ -85,11 +87,18 @@ def _cfgs(arch):
 
 
 def _batch(cfg, seed, rows=B):
+    """Seeded ids and labels; for a frontend architecture also its
+    embeddings (rows, n_embeds, d), float32 (the configs here are)."""
     rng = np.random.default_rng(seed)
     ids = rng.integers(1, cfg.vocab_size, (rows, S + 1)).astype(np.int32)
     labels = ids[:, 1:].copy()
     labels[0, :3] = -1                      # masked labels count nothing
-    return {"ids": ids[:, :-1], "labels": labels}
+    batch = {"ids": ids[:, :-1], "labels": labels}
+    if cfg.frontend is not None:
+        batch["extra_emb"] = rng.normal(
+            0, 0.02, (rows, cfg.frontend.n_embeds, cfg.d_model)).astype(
+                np.float32)
+    return batch
 
 
 def _np(a):
@@ -165,10 +174,13 @@ def test_lm_loss_and_gradients_match_reference(arch, remat):
     rp = instantiate_tree(RM.model_defs(rc, 1), jax.random.key(1))
     batch = _batch(rc, 2)
 
+    extra = batch.get("extra_emb")
+
     def loss_fn(p):
         return RM.lm_loss(rc, RefCtx(), p, jnp.asarray(batch["ids"]),
                           jnp.asarray(batch["labels"]), remat=remat,
-                          chunk=8)
+                          chunk=8, extra_emb=None if extra is None
+                          else jnp.asarray(extra))
 
     (rl, rm), rg = jax.value_and_grad(loss_fn, has_aux=True)(rp)
     pp = convert.model_params_from_reference(jax.tree.map(np.asarray, rp),
@@ -178,7 +190,8 @@ def test_lm_loss_and_gradients_match_reference(arch, remat):
         t.requires_grad_(True)
     loss, pm = M.lm_loss(pc, ShardCtx(), pp, torch.from_numpy(batch["ids"]),
                          torch.from_numpy(batch["labels"]).long(),
-                         remat=remat, chunk=8)
+                         extra_emb=None if extra is None
+                         else torch.from_numpy(extra), remat=remat, chunk=8)
     it = iter(torch.autograd.grad(loss, leaves))
     pg = tree_map(lambda _: next(it), pp)
     pl = loss.detach()
@@ -205,6 +218,8 @@ def test_remat_matches_no_remat_gradients(arch):
     batch = _batch(pc, 4)
     ids = torch.from_numpy(batch["ids"])
     labels = torch.from_numpy(batch["labels"]).long()
+    extra = batch.get("extra_emb")
+    extra = None if extra is None else torch.from_numpy(extra)
     grads = []
     for remat in (True, False):
         leaves = [t.detach().clone().requires_grad_(True)
@@ -212,7 +227,7 @@ def test_remat_matches_no_remat_gradients(arch):
         it = iter(leaves)
         p = tree_map(lambda _: next(it), params)
         loss, _ = M.lm_loss(pc, ShardCtx(), p, ids, labels, remat=remat,
-                            chunk=8)
+                            chunk=8, extra_emb=extra)
         grads.append(torch.autograd.grad(loss, leaves))
     for a, b in zip(*grads):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6,

@@ -22,8 +22,12 @@ writes those states, bitwise ``ref.rglru_states``, only where a graph is
 wanted; its kernels report no spill; the flash forward's
 log-sum-exp against ``ref.attention_lse``; reduced RecurrentGemma trains on
 the card through ``make_train_step`` and ``launch.train.run``; so do reduced
-Gemma2-9B and DeepSeek-V2-Lite in bfloat16, with the flash backward's
+Gemma2-9B, DeepSeek-V2-Lite, Pixtral-12B and MusicGen-medium in bfloat16
+(the last two with their frontends' embeddings), with the flash backward's
 launches by window and the MoE's routes the same in remat's recomputation.
+The two frontend models' attention layouts (Pixtral's G 4 at d 128,
+MusicGen's 24 heads of G 1 at d 64) run the flash forward and backward at
+reduced length against the plain versions.
 """
 import dataclasses
 
@@ -329,15 +333,16 @@ def _flash_inputs(case, dtype, dev, seed=0):
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_backward_kernel_matches_plain(case, dtype, cuda):
     q, k, v, q_pos, k_pos, do, window, cap = _flash_inputs(case, dtype, cuda)
-    out, lse = flash_ops.flash_attention(q, k, v, q_pos, k_pos, window, cap,
-                                         return_lse=True)
+    out, lse, lo = flash_ops.flash_attention(q, k, v, q_pos, k_pos, window,
+                                             cap, return_lse=True)
+    assert (lo is None) == (dtype == torch.float32)
     want_lse = flash_ref.attention_lse(q, k, q_pos, k_pos, window, cap)
     seen = torch.isfinite(want_lse)
     assert torch.equal(torch.isfinite(lse), seen)
     assert torch.allclose(lse[seen], want_lse[seen], rtol=1e-5, atol=1e-5)
     before = flash_ops.bwd_launches
     got = flash_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do,
-                                        window, cap)
+                                        window, cap, lo)
     assert flash_ops.bwd_launches == before + 1
     want = flash_ref.attention_bwd(q, k, v, q_pos, k_pos, window, cap, do)
     torch.cuda.synchronize()
@@ -345,7 +350,7 @@ def test_flash_backward_kernel_matches_plain(case, dtype, cuda):
         assert not bool(torch.isnan(g).any()), name
         _assert_close(name, g, w, flash=True)
     again = flash_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do,
-                                          window, cap)
+                                          window, cap, lo)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -426,7 +431,8 @@ def test_recurrentgemma_trains_on_the_card(cuda):
     assert all(np.isfinite(h["loss"]) for h in hist)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "deepseek-v2-lite-16b",
+                                  "pixtral-12b", "musicgen-medium"])
 def test_dense_and_mla_models_train_on_the_card(arch, cuda):
     """Reduced Gemma2 (local / global windows, softcaps) and DeepSeek (MLA,
     a dense first layer, MoE) in bfloat16 through ``make_train_step`` on
@@ -448,7 +454,8 @@ def test_dense_and_mla_models_train_on_the_card(arch, cuda):
     step = steps.make_train_step(cfg, tcfg)
     gen = np.random.default_rng(0)
     ids = gen.integers(1, cfg.vocab_size, (2, 65)).astype(np.int32)
-    batch = {"ids": ids[:, :-1], "labels": ids[:, 1:]}
+    batch = {"ids": ids[:, :-1], "labels": ids[:, 1:],
+             **chip_smoke.frontend_embeddings(cfg, gen, 2, cuda)}
     want, by_window = chip_smoke.train_launches_per_step(cfg, tcfg.remat)
     windows = []
     orig_bwd = flash_ops.flash_attention_bwd
@@ -475,3 +482,91 @@ def test_dense_and_mla_models_train_on_the_card(arch, cuda):
     assert {w: windows.count(w) for w in set(windows)} == {
         w: 3 * n for w, n in by_window.items()}
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+# (b, sq, kvh, G, dh): the frontend models' attention at reduced length:
+# Pixtral-12B's 8 kv heads of G 4 at d 128, MusicGen-medium's 24 heads of
+# G 1 at d 64 (the kernels' 128 and 64 tiers), causal
+FRONTEND_FLASH = [(2, 384, 8, 4, 128), (2, 384, 24, 1, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", FRONTEND_FLASH,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_frontend_flash_layouts_forward_and_backward(layout, dtype, cuda):
+    """The forward against ``ref.attention`` (``tests/test_kernels.py``'s
+    tolerance: 2e-2 in bfloat16, 5e-5 + 1e-4 rel in float32), its
+    log-sum-exp against ``ref.attention_lse``, and the backward through the
+    autograd ``Function`` against ``ref.attention_bwd``, one launch each."""
+    b, s, kvh, G, dh = layout
+    case = (b, s, s, kvh, G, dh, dh, None, None, False)
+    q, k, v, q_pos, k_pos, do, _, _ = _flash_inputs(case, dtype, cuda, 9)
+    f0, b0 = flash_ops.launches, flash_ops.bwd_launches
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_ops.flash_attention(*leaves, q_pos, k_pos)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (flash_ops.launches, flash_ops.bwd_launches) == (f0 + 1, b0 + 1)
+    tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
+           else dict(atol=5e-5, rtol=1e-4))
+    want_out = flash_ref.attention(q, k, v, q_pos, k_pos)
+    torch.testing.assert_close(out.detach().float(), want_out.float(), **tol)
+    if dtype == torch.bfloat16:
+        # the training forward's residual: out + out_lo nearer the float32
+        # plain output than out alone, out itself the serve forward's bits
+        o2, _, lo = flash_ops.flash_attention(q, k, v, q_pos, k_pos,
+                                              return_lse=True)
+        assert torch.equal(o2, out.detach())
+        o32 = flash_ref.attention(q.float(), k.float(), v.float(), q_pos,
+                                  k_pos)
+        assert float((o2.float() + lo.float() - o32).abs().max()) \
+            < float((o2.float() - o32).abs().max())
+    _, lse, _ = flash_ops.flash_attention(q, k, v, q_pos, k_pos,
+                                          return_lse=True)
+    torch.testing.assert_close(lse, flash_ref.attention_lse(
+        q, k, q_pos, k_pos, None, None), rtol=1e-5, atol=1e-5)
+    want = flash_ref.attention_bwd(q, k, v, q_pos, k_pos, None, None, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert not bool(torch.isnan(g).any()), name
+        _assert_close(name, g, w, flash=True)
+
+
+def test_output_residual_keeps_the_backward_within_the_gate(cuda):
+    """``tests/test_torch_flash_bwd_bf16.py``'s near-cancelling case on the
+    card (near-uniform attention over values with a common mean of 8, 24
+    heads of d 64, causal): the training forward's residual out_lo is at
+    most half a bfloat16 ulp of out and brings out + out_lo closer to the
+    plain float32 output (the kernel rounds P for P V, so not to float32's
+    rounding), and the backward that takes it meets the gate; from the
+    bfloat16 output alone D's error puts dq past it.  The inputs are that
+    test's, whose emulation of the kernels' arithmetic puts dq at 1.8e-2 of
+    max|plain| without the residual and 6.2e-3 with it."""
+    b, s, kvh, dh = 1, 256, 24, 64
+    rng = np.random.default_rng(11)
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale + shift)
+                                .astype(np.float32)).to(cuda, torch.bfloat16)
+    q = r(b, s, kvh, 1, dh, scale=0.01)
+    k = r(b, s, kvh, dh)
+    v = r(b, s, kvh, dh, shift=8.0)
+    do = r(b, s, kvh, 1, dh)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+    out, lse, lo = flash_ops.flash_attention(q, k, v, pos, pos,
+                                             return_lse=True)
+    want_out = flash_ref.attention(q.float(), k.float(), v.float(), pos, pos)
+    err_hi = float((out.float() - want_out).abs().max())
+    err_lo = float((out.float() + lo.float() - want_out).abs().max())
+    assert err_lo < 0.5 * err_hi, (err_lo, err_hi)
+    assert bool((lo.float().abs() <= 2.0 ** -8 * out.float().abs()).all())
+    assert bool(lo.any())
+    want = flash_ref.attention_bwd(q, k, v, pos, pos, None, None, do)
+    got = flash_ops.flash_attention_bwd(q, k, v, pos, pos, out, lse, do,
+                                        out_lo=lo)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _assert_close(name, g, w, flash=True)
+    # a residual of zeros: D from the bfloat16 output alone
+    plain = flash_ops.flash_attention_bwd(q, k, v, pos, pos, out, lse, do,
+                                          out_lo=torch.zeros_like(lo))
+    with pytest.raises(AssertionError, match="dq"):
+        _assert_close("dq", plain[0], want[0], flash=True)

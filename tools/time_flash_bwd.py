@@ -4,9 +4,10 @@ the card.
 
 The call is timed as RecurrentGemma-9B's train step makes it: q (2 x 4,096
 x 1 x 16 x 256), k and v (2 x 4,096 x 1 x 256) in bfloat16, a window of
-2,048, no softcap, the forward's output and log-sum-exp, dout in q's
-dtype; inputs drawn on the card from ``--seed``.  With ``--library``,
-beside it, one library call for the same function: the backward of
+2,048, no softcap, the forward's output, log-sum-exp and output residual
+(as training's forward writes them), dout in q's dtype; inputs drawn on
+the card from ``--seed``.  With ``--library``, beside it, one library call
+for the same function: the backward of
 ``scaled_dot_product_attention`` with the window as a boolean mask (its
 forward run once outside the timing).  Whatever ``ops.flash_attention_bwd``
 runs is timed, so pointing PYTHONPATH at another checkout's ``src`` times
@@ -98,12 +99,15 @@ def main() -> None:
         return torch.randn(shape, generator=g, device=dev).bfloat16()
     q, k, v = randn(b, s, kvh, G, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
     dout = randn(b, s, kvh, G, d)
-    o, lse = ops.flash_attention(q, k, v, pos, pos, window, None,
-                                 return_lse=True)
+    # the forward as training runs it; a tree from before the output's
+    # rounding residual returns (out, lse) alone
+    o, lse, *lo = ops.flash_attention(q, k, v, pos, pos, window, None,
+                                      return_lse=True)
+    kw = {"out_lo": lo[0]} if lo else {}
 
     def call():
         return ops.flash_attention_bwd(q, k, v, pos, pos, o, lse, dout,
-                                       window, None)
+                                       window, None, **kw)
     ms = cuda_ms(call, args.reps)
     out.update(ms=ms, tflops=flops / ms / 1e9,
                bound_share=flops / PEAK_BF16 * 1e3 / ms,
